@@ -1,0 +1,118 @@
+"""Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by
+``nvcc`` for ``sm_90a`` (H100) into its own shared library under
+``build/kernels/`` at the repository root, named by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one is reused.
+Libraries are built at first use; :func:`build` builds several at once, one
+``nvcc`` process per source, all started together. Nothing is compiled when
+this module is imported, and a machine without ``nvcc`` raises when a kernel
+is needed.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: Where the CUDA toolkit puts nvcc when it is not on PATH.
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of each library's entry point: (function, argtypes).
+SIGNATURES = {
+    "segment_reduce": ("segment_reduce_f32",
+                       [_P] * 9 + [_I] * 6 + [_P]),
+    "masked_update": ("masked_update_f32",
+                      [_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
+                                  _P]),
+}
+
+_LOADED: dict[str, ctypes._CFuncPtr] = {}
+_LOCK = threading.Lock()
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc`` (on PATH, or the toolkit's default place)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.exists():
+        return str(DEFAULT_NVCC)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of repro_torch are built from "
+        "source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` goes, keyed by a hash of
+    the source and the flags."""
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, float]:
+    """Compile the named libraries that are not built yet, one ``nvcc`` per
+    source, all running at once. Returns seconds per library built (0.0 for
+    one that was already there); raises with the compiler's output on
+    failure. The compiler's messages (``-Xptxas=-v``: registers, spills)
+    are kept beside each library as ``<library>.log``."""
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    if not todo:
+        return {n: 0.0 for n in names}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    secs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        out.with_suffix(".so.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)   # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return {n: secs.get(n, 0.0) for n in names}
+
+
+def build_log(name: str) -> str:
+    """The compiler's messages from building ``name`` ('' if none)."""
+    log = library_path(name).with_suffix(".so.log")
+    return log.read_text() if log.exists() else ""
+
+
+def entry(name: str):
+    """The C entry point of library ``name``, built and loaded on first
+    use, with its argtypes and an int restype (the CUDA error code)."""
+    with _LOCK:
+        fn = _LOADED.get(name)
+        if fn is None:
+            build((name,))
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LOADED[name] = fn
+        return fn

@@ -10,8 +10,9 @@
 // Semantics kept exactly (those of the scan):
 //   m[k,s]   = messages[k,s,:] where emask[k,s] && s < csr_fill[k],
 //              else the combine identity;
-//   agg[k,v] = combine of m[k, start..last_slot[k,v]], start the nearest
-//              s <= last_slot[k,v] with seg_start[k,s] (0 if none);
+//   agg[k,v] = combine of m[k, run_start[k,l]..l], l = last_slot[k,v] and
+//              run_start[k,l] the nearest s <= l with seg_start[k,s] (0 if
+//              none; the wrapper hands it in, derived once per plan);
 //   then every live slot s in [csr_fill[k], e_max) is combined into
 //   agg[k, edge_tgt[k,s]] (the unsorted append region), and agg is the
 //   identity where !vmask.
@@ -19,16 +20,16 @@
 // Bound on this card: bytes. Each live message is read once and combined
 // once (one flop per 4-byte message), so the H100's 3.35 TB/s, not its
 // arithmetic, limits it.
-// Design: one thread per (k, v) target walks its CSR run backwards from
-// last_slot to the segment start and reduces it alone (neighbouring
-// threads own neighbouring runs, so their reads share cache lines). A run
-// longer than 32 slots — a hub — is listed instead, and a second launch
-// gives each listed run a whole block that walks it 4096 slots a step, so
-// a hub of 10^5 half-edges does not leave one thread or one warp running
-// long after the rest of the card is idle. A third launch folds the append
-// region in with atomics. Float min/max atomics use the ordered-integer bit pattern
-// trick (CUDA has no float atomicMin/Max), which keeps +-inf. Nothing is
-// allocated here: the wrapper hands in the output and the list's scratch.
+// Design: one thread per (k, v) target reduces its CSR run alone
+// (neighbouring threads own neighbouring runs, so their reads share cache
+// lines). A run longer than 32 slots — a hub — is listed instead, and a
+// second launch gives each listed run a whole block whose threads stride
+// through it, so a hub of 10^5 half-edges does not leave one thread or one
+// warp running long after the rest of the card is idle. A third launch
+// folds the append region in with atomics. Float min/max atomics use the
+// ordered-integer bit pattern trick (CUDA has no float atomicMin/Max),
+// which keeps +-inf. Nothing is allocated here: the wrapper hands in the
+// output and the list's scratch.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -64,26 +65,21 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   }
 }
 
-// Slots a thread walks alone, backwards from last_slot, before the target
-// goes to the long-run kernel.
+// Slots a thread reduces alone before the target goes to the long-run
+// kernel.
 constexpr int kShort = 32;
-// The long-run kernel: threads per block, and slots each thread covers per
-// step (a step covers kThreads * kPerThread slots, strided so that a warp
-// reads consecutive addresses).
+// The long-run kernel's threads per block.
 constexpr int kThreads = 256;
-constexpr int kPerThread = 16;
-constexpr int kChunk = kThreads * kPerThread;
 
 // One thread per (k, v) target. Most targets own a short run of the CSR
 // stream (the partition-local degree of a power-law graph is ~2), so a
-// thread walks back from last_slot to the segment start and reduces the
-// run alone, in slot order; neighbouring threads own neighbouring runs, so
-// their reads share cache lines. A run with no segment start within kShort
-// slots (a hub; dblp's largest has ~10^5 edges) is listed in `work` for
-// segment_long_kernel instead of serialising one thread or one warp.
+// thread reduces the run alone, in slot order; neighbouring threads own
+// neighbouring runs, so their reads share cache lines. A run longer than
+// kShort slots (a hub; dblp's largest has ~10^5 edges) is listed in `work`
+// for segment_long_kernel instead of serialising one thread or one warp.
 __global__ void segment_short_kernel(
     const float* __restrict__ msgs, const bool* __restrict__ emask,
-    const bool* __restrict__ seg_start, const int* __restrict__ last_slot,
+    const int* __restrict__ run_start, const int* __restrict__ last_slot,
     const bool* __restrict__ vmask, const int* __restrict__ csr_fill,
     float* __restrict__ out, int* __restrict__ work, int K, int E, int V,
     int F, int op) {
@@ -93,23 +89,13 @@ __global__ void segment_short_kernel(
   const int k = static_cast<int>(t / V);
   const long long row = static_cast<long long>(k) * E;
   const int last = last_slot[t];
-  const int fill = csr_fill[k];
-  const int hi = min(last, fill - 1);  // slots >= csr_fill hold the identity
+  const int hi = min(last, csr_fill[k] - 1);  // slots >= csr_fill: identity
   bool live = vmask[t] && hi >= 0 && last < E;
-  // a segment that starts at or after csr_fill holds only identities
-  if (live && last >= fill && seg_start[row + fill]) live = false;
-  int start = 0;
-  if (live) {
-    const int stop = max(last - kShort, -1);  // exclusive
-    int s = last;
-    while (s > stop && !seg_start[row + s]) --s;
-    if (s > stop) {
-      start = s;
-    } else if (stop >= 0) {  // longer than kShort: the long-run kernel
-      work[1 + atomicAdd(work, 1)] = static_cast<int>(t);
-      return;
-    }  // else: no segment start at or before last_slot, start = 0
-    if (start > hi) live = false;
+  const int start = live ? run_start[row + last] : 0;
+  if (start > hi) live = false;  // the run starts in the identity region
+  if (live && hi - start >= kShort) {  // a hub: the long-run kernel
+    work[1 + atomicAdd(work, 1)] = static_cast<int>(t);
+    return;
   }
   const float ident = identity_of(op);
   for (int f = 0; f < F; ++f) {
@@ -124,17 +110,14 @@ __global__ void segment_short_kernel(
 }
 
 // One block per listed long target at a time (a grid-stride loop over
-// `work`). The block walks the run backwards from last_slot in steps of
-// kChunk slots: every thread checks its slots for a segment start (the
-// highest one in the step wins, through a shared atomicMax) and combines
-// the step's live messages at or after it; the walk ends at the step that
-// holds the start. A shuffle tree and shared memory combine the threads.
+// `work`). The block's threads stride through the run's slots, a shuffle
+// tree and shared memory combine the threads, and thread 0 writes the
+// target's value.
 __global__ void __launch_bounds__(kThreads) segment_long_kernel(
     const float* __restrict__ msgs, const bool* __restrict__ emask,
-    const bool* __restrict__ seg_start, const int* __restrict__ last_slot,
+    const int* __restrict__ run_start, const int* __restrict__ last_slot,
     const int* __restrict__ csr_fill, const int* __restrict__ work,
     float* __restrict__ out, int E, int V, int F, int op) {
-  __shared__ int s_found;
   __shared__ float s_part[kThreads / 32];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -146,31 +129,11 @@ __global__ void __launch_bounds__(kThreads) segment_long_kernel(
     const long long row = static_cast<long long>(k) * E;
     const int last = last_slot[t];
     const int hi = min(last, csr_fill[k] - 1);
+    const int start = run_start[row + last];
     for (int f = 0; f < F; ++f) {
       float acc = ident;
-      for (int top = last;; ) {  // this step covers [top - kChunk + 1, top]
-        const int lo = top - kChunk + 1;
-        if (tid == 0) s_found = -1;
-        __syncthreads();
-        int mine = -1;
-        for (int j = 0; j < kPerThread; ++j) {
-          const int s = lo + j * kThreads + tid;
-          if (s >= 0 && seg_start[row + s]) mine = s;  // s grows with j
-        }
-        if (mine >= 0) atomicMax(&s_found, mine);
-        __syncthreads();
-        const int found = s_found;
-        const int from = max(found >= 0 ? found : lo, 0);
-        const int to = min(top, hi);
-        for (int j = 0; j < kPerThread; ++j) {
-          const int s = lo + j * kThreads + tid;
-          if (s >= from && s <= to && emask[row + s]) {
-            acc = combine(op, acc, msgs[(row + s) * F + f]);
-          }
-        }
-        __syncthreads();  // every thread has read s_found
-        if (found >= 0 || lo <= 0) break;  // block-uniform
-        top = lo - 1;
+      for (int s = start + tid; s <= hi; s += kThreads) {
+        if (emask[row + s]) acc = combine(op, acc, msgs[(row + s) * F + f]);
       }
       for (int off = 16; off > 0; off >>= 1) {
         acc = combine(op, acc, __shfl_xor_sync(kFull, acc, off));
@@ -220,11 +183,11 @@ __global__ void segment_append_kernel(
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). `work` is scratch the caller
-// allocates: 1 + K*V ints (a count, then the long targets). Launches the
-// three kernels on `stream` and returns cudaGetLastError() as an int (0 on
+// allocates: 1 + K*V ints (a count, then the long targets); `run_start` is
+// the plan's per-slot run start. Launches the three kernels on `stream` and returns cudaGetLastError() as an int (0 on
 // success).
 extern "C" int segment_reduce_f32(const float* msgs, const bool* emask,
-                                  const bool* seg_start, const int* last_slot,
+                                  const int* run_start, const int* last_slot,
                                   const bool* vmask, const int* edge_tgt,
                                   const int* csr_fill, float* out, int* work,
                                   int K, int E, int V, int F, int append_lo,
@@ -236,13 +199,13 @@ extern "C" int segment_reduce_f32(const float* msgs, const bool* emask,
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long blocks = (targets + kThreads - 1) / kThreads;
     segment_short_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        msgs, emask, seg_start, last_slot, vmask, csr_fill, out, work, K, E,
+        msgs, emask, run_start, last_slot, vmask, csr_fill, out, work, K, E,
         V, F, op);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     // a fixed grid that loops over however many long targets were listed
     segment_long_kernel<<<512, kThreads, 0, st>>>(
-        msgs, emask, seg_start, last_slot, csr_fill, work, out, E, V, F, op);
+        msgs, emask, run_start, last_slot, csr_fill, work, out, E, V, F, op);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -36,6 +36,7 @@ SIGNATURES = {
     "masked_update": ("masked_update_f32",
                       [_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                   _P]),
+    "gspmm": ("gspmm_f32", [_P] * 11 + [_I] * 7 + [_P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -23,7 +23,8 @@ e_max)`` is the unsorted append region that the kernels fold in by scatter.
 
 Index fields stay int32 like the reference's. The runtime needs int64
 indices for gathers and scatters; :meth:`PartitionPlan.index64` widens a
-field once per plan and keeps the result.
+field once per plan and keeps the result, as :attr:`PartitionPlan.run_start`
+keeps each slot's run start for the kernels.
 """
 from __future__ import annotations
 
@@ -112,6 +113,19 @@ class PartitionPlan:
         """Lowest ``csr_fill`` over partitions: slots below it are CSR
         prefix in every partition (the append-region kernel starts here)."""
         return self._memo("_csr_fill_min", lambda: int(self.csr_fill.min()))
+
+    @property
+    def run_start(self) -> torch.Tensor:
+        """[K, Emax] int32: the nearest slot at or before each slot with
+        ``seg_start`` set (0 if none), i.e. where the run through that slot
+        begins. The kernels read a target's run as ``[run_start[last_slot],
+        last_slot]`` instead of searching back for its start."""
+        def make():
+            slot = torch.arange(self.e_max, dtype=torch.int32,
+                                device=self.device)
+            return torch.where(self.seg_start, slot, 0).cummax(dim=1) \
+                .values.contiguous()
+        return self._memo("_run_start", make)
 
     def exchange_per_superstep(self) -> int:
         return self.exchange_volume

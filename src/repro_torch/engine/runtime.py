@@ -67,6 +67,13 @@ class EdgeProgram(NamedTuple):
     warm_init: Callable | None = None
                                     # (plan, prev [V(, F)], ctx) ->
                                     #   [K, Vmax(, F)] warm-start state
+    edge_mul: Callable | None = None
+                                    # (plan, ctx) -> [K, Emax] or [K, Emax, F]
+                                    #   multiplicative per-half-edge weights;
+                                    #   routes the sweep through gspmm
+                                    #   (gather · multiply · segment-reduce
+                                    #   in one kernel) instead of the edge
+                                    #   hook and segment_reduce
     state: StateSpec = SCALAR       # per-vertex state shape declaration
 
 
@@ -116,6 +123,11 @@ def _sweep(plan: PartitionPlan, prog: EdgeProgram, state, ctx, *,
            use_kernels: bool):
     """One Gather-Apply sweep: per-target aggregate [K, Vmax(, F)]."""
     pre = prog.pre(state, ctx)                              # [K, Vmax(, F)]
+    if prog.edge_mul is not None:   # gSpMM path (GNN programs)
+        w = prog.edge_mul(plan, ctx)
+        spmm = kernels.gspmm if use_kernels else kernels.gspmm_ref
+        agg = spmm(plan, pre, w, prog.combine)              # [K, Vmax, F]
+        return agg[:, :, 0] if pre.ndim == 2 else agg
     rows = torch.arange(plan.k, device=pre.device)[:, None]
     msgs = pre[rows, plan.index64("edge_nbr")]              # [K, Emax(, F)]
     if prog.edge is not None:   # per-half-edge hook (weighted programs)

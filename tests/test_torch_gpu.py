@@ -67,6 +67,19 @@ def _plans(dev: str) -> dict:
             "patched": _patched(slack, seed=0)}
 
 
+def _hub_plan(dev: str, leaves: int = 3000):
+    """A star of ``leaves`` leaves on a ring, split in two partitions: the
+    hub's run in each is ~10^3 slots, which the kernels hand to their
+    long-run (block per hub) paths."""
+    n = leaves + 1
+    star = np.stack([np.zeros(leaves, np.int64), np.arange(1, n)], 1)
+    ring = np.stack([np.arange(1, n), np.arange(2, n + 1) % n], 1)
+    ring = ring[ring[:, 1] > 0]
+    g = TG.from_edge_array(n, np.concatenate([star, ring]), device=dev)
+    owner = torch.where(g.edge_mask, g.dst % 2, -2)
+    return TE.compile_plan(g, owner, 2, device=dev)
+
+
 @pytest.mark.gpu
 def test_segment_reduce_matches_plain_on_card():
     """min/max exact, add within 1e-5 (another summation order, on
@@ -97,11 +110,12 @@ def test_segment_reduce_matches_plain_on_card():
 
 @pytest.mark.gpu
 def test_masked_update_matches_plain_on_card():
-    """Exact, for scalar and F=3 state; one launch per call."""
+    """Exact, for scalar, F=3 and F=8 (the GNN programs' loop state)
+    state; one launch per call."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
     plan = _plans(dev)["patched"]
-    for features in (1, 3):
+    for features in (1, 3, 8):
         tail = (features,) if features > 1 else ()
         state = torch.rand((plan.k, plan.v_max) + tail, generator=gen,
                            device=dev)
@@ -135,3 +149,92 @@ def test_engine_on_card_equals_cpu():
     for i in (2, 3):
         assert torch.equal(out[dev][i].state.cpu(), out["cpu"][i].state)
         assert out[dev][i].row() == out["cpu"][i].row()
+
+
+@pytest.mark.gpu
+def test_gspmm_matches_plain_on_card():
+    """max exact; add and mean within 1e-4 relative (non-negative terms, up
+    to ~10^3 per run, summed in another order: hub runs combine block
+    partials by atomics); one gspmm launch per call, and mean adds one
+    segment_reduce launch for the degree. Fresh, patched and hub plans;
+    widths 1 (rank-2 feats), 3, 8 and 40; scalar and per-feature
+    weights."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    plans = dict(_plans(dev), hub=_hub_plan(dev))
+    for name, plan in plans.items():
+        for features in (1, 3, 8, 40):
+            feats = torch.rand((plan.k, plan.v_max, features), generator=gen,
+                               device=dev)
+            if features == 1:
+                feats = feats[:, :, 0]
+            wide = torch.rand(tuple(plan.emask.shape) + (features,),
+                              generator=gen, device=dev)
+            for w in (plan.edge_w, wide):
+                for combine in ("add", "max", "mean"):
+                    before = dict(TK.LAUNCHES)
+                    got = TK.gspmm(plan, feats, w, combine)
+                    want = TK.gspmm_ref(plan, feats, w, combine)
+                    torch.cuda.synchronize()
+                    assert TK.LAUNCHES["gspmm"] == before["gspmm"] + 1
+                    assert TK.LAUNCHES["segment_reduce"] == \
+                        before["segment_reduce"] + (combine == "mean")
+                    assert got.shape == (plan.k, plan.v_max, features)
+                    key = (name, features, w.ndim, combine)
+                    if combine == "max":
+                        assert torch.equal(got, want), key
+                    else:
+                        torch.testing.assert_close(got, want, rtol=1e-4,
+                                                   atol=1e-6, msg=str(key))
+
+
+@pytest.mark.gpu
+def test_gnn_programs_on_card_match_cpu():
+    """The slice's programs on the card equal the port on the CPU: wsssp,
+    BFS and labelprop bit-identical with equal counters; PPR within 1e-4
+    relative element by element (positive ranks), gcn_layer and kge_score
+    within 1e-4 relative of the largest value (other summation orders;
+    their outputs change sign); gcn_layer and kge_score launch gspmm."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    out, inputs = {}, None
+    for d in (dev, "cpu"):
+        g = TG.largest_component(TG.barabasi_albert(400, 3, seed=2,
+                                                    device=d))
+        owner, _ = TD.partition(g, k=4, seed=0, max_rounds=400,
+                                stall_rounds=16, device=d)
+        eng = TE.Engine(TE.compile_plan(g, owner, 4, device=d))
+        if inputs is None:
+            v = g.n_vertices
+            inputs = {
+                "labels": rng.permutation(v).astype(np.float32),
+                "p": np.full(v, 1.0 / v, np.float32),
+                "x": rng.normal(size=(v, TE.GCN_F_IN)).astype(np.float32),
+                "w": rng.normal(size=(TE.GCN_F_IN, TE.GCN_F_OUT)).astype(
+                    np.float32),
+                "ent": rng.normal(size=(v, TE.KGE_F)).astype(np.float32),
+                "rel": rng.normal(size=(g.e_pad, TE.KGE_F)).astype(
+                    np.float32)}
+        deg = g.degrees()
+        before = TK.LAUNCHES["gspmm"]
+        out[d] = {
+            "gcn_layer": TE.engine_gcn_layer(eng, deg, inputs["x"],
+                                             inputs["w"]),
+            "kge_score": TE.engine_kge_score(eng, inputs["ent"],
+                                             inputs["rel"]),
+            "wsssp": TE.engine_weighted_sssp(eng, 0),
+            "bfs": TE.engine_bfs(eng, 0),
+            "labelprop": TE.engine_label_propagation(eng, inputs["labels"]),
+            "ppr": TE.engine_personalized_pagerank(eng, deg, inputs["p"])}
+        launched = TK.LAUNCHES["gspmm"] - before
+        assert launched == (2 if d == dev else 0)
+    for name in ("wsssp", "bfs", "labelprop"):
+        assert torch.equal(out[dev][name].state.cpu(), out["cpu"][name].state)
+        assert out[dev][name].row() == out["cpu"][name].row()
+    torch.testing.assert_close(out[dev]["ppr"].state.cpu(),
+                               out["cpu"]["ppr"].state, rtol=1e-4, atol=0)
+    for name in ("gcn_layer", "kge_score"):
+        want = out["cpu"][name].state
+        scale = float(want.abs().max())
+        torch.testing.assert_close(out[dev][name].state.cpu(), want, rtol=0,
+                                   atol=1e-4 * scale)

@@ -6,7 +6,7 @@ Phases, in the order they run (any failure raises, so the process exits
 non-zero with no "ok" line):
 
 1. device   — require CUDA; print the card's name and power limit
-              (nvidia-smi); build the three CUDA kernels from
+              (nvidia-smi); build the six CUDA kernels from
               ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, in
               parallel.
 2. main     — the paper's pipeline at the EC2 scale, through the user entry
@@ -17,9 +17,10 @@ non-zero with no "ok" line):
               must equal a scipy.sparse.csgraph oracle exactly; PageRank
               must agree with the engine's plain path on the card and with a
               float64 numpy oracle to the relative tolerances below. The
-              launch counters are zeroed before this phase, and both of its
-              kernels (segment_reduce, masked_update) must have risen by its
-              end.
+              launch counters are zeroed before this phase; lane_cumsum (DFEP's
+              rank cumsum) must have risen during ``dfep.partition``, and
+              the engine's kernels (segment_reduce, masked_update) by the
+              phase's end.
 3. gnn      — the second path on the main phase's plan, through the user
               entry points: ``engine_gcn_layer`` (x [V, 8], weight [8, 4]),
               ``engine_kge_score`` (entity [V, 8], relation [e_pad, 8]),
@@ -33,20 +34,45 @@ non-zero with no "ok" line):
               the plain path on the card and with a float64 numpy oracle
               element by element, and gcn_layer and kge_score to a bound
               relative to their largest value (tolerances below).
-4. kernels  — each kernel against its plain version on the main path's plan
+4. etsch    — the paper's own dense ETSCH framework, metrics and baselines
+              on the main phase's graph and DFEP owner, through the user
+              entry points: ``etsch.compile_partitioning``, then
+              ``etsch_sssp(0)`` (equal to scipy and to the main phase's
+              engine SSSP), ``etsch_cc`` with seeded ids (each vertex the
+              min id of its component), ``etsch_multi_sssp`` from 8 seeded
+              sources (each row equal to scipy BFS), ``etsch_pagerank(30)``
+              (PR_ORACLE_RTOL of the float64 oracle), ``etsch_mis`` with
+              seeded priorities (a maximal independent set) and
+              ``etsch_kcore`` (equal to a numpy peeling oracle), each timed
+              first and warm; then ``metrics.evaluate`` (MESSAGES and the
+              replication factor equal to the plan's, the gain equal to
+              1 - supersteps / (eccentricity + 1)); the gain on the road
+              network stand-in (usroads, full scale, DFEP K=16: > 0 and
+              equal to the same formula); and the paper's Fig. 7
+              comparison: hash, random, greedy and JaBeJa partitions
+              through ``metrics.evaluate``. The counters are zeroed before
+              it; minplus_sweep and frontier_min must rise in
+              ``etsch_sssp`` and minplus_sweep in ``evaluate``.
+5. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region (gspmm at
               F = 1, 8 and 128, add/max/mean, scalar and per-feature
-              weights; masked_update scalar and at the GNN state's F=8),
-              then timed: device time from CUDA-graph replays (``ms``,
-              ``plain_ms``, ``library_ms``) and eager back-to-back calls
-              with their host launch cost (``*_eager_ms``), gspmm also with
-              only its largest hub run live and with no live slot (the
-              difference is the hub run's time); prints one
+              weights; masked_update scalar and at the GNN state's F=8);
+              lane_cumsum on DFEP's [2·e_pad, 16] and [V, 16] 0/1 arrays
+              (int32, exact) and a float32 case, frontier_min on [16, V]
+              with the real member mask, minplus_sweep on ETSCH's flat
+              [K·V] state and on the whole graph at costs 1 and 0 (both
+              exact); then timed: device time from CUDA-graph replays
+              (``ms``, ``plain_ms``, ``library_ms``) and eager back-to-back
+              calls with their host launch cost (``*_eager_ms``), gspmm
+              also with only its largest hub run live and with no live slot
+              (the difference is the hub run's time); prints one
               ``{"kernels": [...]}`` line.
-5. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
+6. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
-              rounds, and the same SSSP result.
+              rounds, the same engine SSSP result, the same ETSCH SSSP and CC
+              (same ids) states and counters, and the same partition
+              metrics.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -95,11 +121,23 @@ GNN_PLAIN_REL = 1e-4
 #  * the same vs float64 numpy oracles: float32 accumulation (KGE's hub
 #    sums run over ~10^5 unnormalised terms, where absolute bounds drift).
 GNN_ORACLE_REL = 1e-3
+#  * lane_cumsum on float32 values in [0, 1) against a float64 cumsum,
+#    relative to the running sum: float32 rounding over 1.9 M terms, summed
+#    per tile and per row group rather than in order. int32 is exact.
+FLOAT_CUMSUM_RTOL = 1e-4
 DBLP_SCALE, K, SEED = 1.0, 16, 0
 CPU_CHECK_SCALE = 0.03
 #: The kernels each path must launch.
 MAIN_KERNELS = ("segment_reduce", "masked_update")
 GNN_KERNELS = ("gspmm", "segment_reduce", "masked_update")
+ETSCH_KERNELS = ("minplus_sweep", "frontier_min")
+#: etsch_multi_sssp's seeded sources.
+N_SOURCES = 8
+#: etsch_kcore's k. The dblp stand-in (Barabási–Albert, m = 3) is
+#: 3-degenerate: its 3-core is the whole graph and its 4-core is empty, so
+#: no k has a core strictly between; k = 4 peels the whole graph away, the
+#: longest run.
+K_CORE = 4
 #: gspmm widths timed: the GNN programs' (8) and fig_gnn.py's widest (128).
 GSPMM_WIDTHS = (8, 128)
 #: Interleaved repeats of the largest hub run's timing (its spread is the
@@ -278,6 +316,33 @@ def kge_oracle(g, entity, relation) -> np.ndarray:
     return np.bincount(u, score, n) + np.bincount(v, score, n)
 
 
+def kcore_oracle(g, k_core: int) -> np.ndarray:
+    """The k-core by peeling on the host: drop vertices of live degree
+    below k until none is left to drop."""
+    u, v = g.as_numpy()
+    n = g.n_vertices
+    active = np.bincount(np.concatenate([u, v]), minlength=n) > 0
+    while True:
+        live = active[u] & active[v]
+        deg = (np.bincount(u[live], minlength=n)
+               + np.bincount(v[live], minlength=n))
+        new = active & (deg >= k_core)
+        if np.array_equal(new, active):
+            return active
+        active = new
+
+
+def is_mis_oracle(csr, in_set: np.ndarray) -> bool:
+    """``in_set`` is a maximal independent set of the graph ``csr``: no
+    edge inside it, and every vertex with an edge is in it or next to it."""
+    coo = csr.tocoo()
+    independent = not (in_set[coo.row] & in_set[coo.col]).any()
+    nbr_in = np.zeros(len(in_set), bool)
+    nbr_in[coo.row[in_set[coo.col]]] = True
+    has_edge = np.diff(csr.indptr) > 0
+    return independent and bool((in_set | nbr_in | ~has_edge).all())
+
+
 def max_rel(a: torch.Tensor, b) -> float:
     b = torch.as_tensor(b, dtype=torch.float64, device=a.device)
     return float(((a.double() - b).abs() / b.abs()).max())
@@ -311,8 +376,10 @@ def phase_main():
     from repro_torch.core import dfep, graph
     from repro_torch import engine as E
     from repro_torch.engine import kernels
+    from repro_torch.kernels import ops
 
     kernels.reset_launches()
+    ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     g, t = wall(lambda: graph.load_dataset("dblp", scale=DBLP_SCALE,
                                            seed=SEED))
@@ -323,11 +390,14 @@ def phase_main():
     torch.cuda.reset_peak_memory_stats()
     (owner, info), t = wall(lambda: dfep.partition(
         g, k=K, seed=SEED, max_rounds=4000, stall_rounds=64))
+    dfep_launches = dict(ops.LAUNCHES)
     log({"phase": "main.dfep", "wall_s": t, "rounds": info["rounds"],
          "unsold_at_stop": info["unsold_at_stop"],
          "finalized": info["finalized"], "starts": info["starts"],
          "ms_per_round": 1e3 * t / max(info["rounds"], 1),
-         "peak_mib": peak_mib()})
+         "launches": dfep_launches, "peak_mib": peak_mib()})
+    require(dfep_launches["lane_cumsum"] > 0,
+            "kernel lane_cumsum was not launched by DFEP")
     own = owner.cpu().numpy()
     em = g.edge_mask.cpu().numpy()
     require(((own[em] >= 0) & (own[em] < K)).all() and (own[~em] == -2).all(),
@@ -381,7 +451,8 @@ def phase_main():
             f"max rel {rel_plain} > {PR_PLAIN_RTOL}")
     require(rel_oracle <= PR_ORACLE_RTOL, f"PageRank vs float64 oracle: "
             f"max rel {rel_oracle} > {PR_ORACLE_RTOL}")
-    return g, plan, launches
+    launches.update(dfep_launches)
+    return g, owner, plan, launches, results["sssp"].state
 
 
 def phase_gnn(g, plan):
@@ -490,6 +561,170 @@ def phase_gnn(g, plan):
          "bit_equal_oracle": ["wsssp", "bfs", "labelprop"],
          "oracle_s": oracle_s, **check, "launches": launches})
     return launches
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _road_gain():
+    """The paper's gain where it shows: on a large-diameter graph. The
+    small-world dblp stand-in is a few hops across, so an ETSCH superstep
+    there moves about one hop, as a vertex-centric round does, and the gain
+    is 0. The road-network stand-in (USROADS, full scale) is partitioned
+    by DFEP as the main phase partitions dblp; ETSCH SSSP from vertex 0 must
+    equal scipy, and its gain must be > 0 and equal to 1 - supersteps /
+    (eccentricity + 1)."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import dfep, etsch, graph, metrics
+
+    road, t_load = wall(lambda: graph.load_dataset("usroads", scale=1.0,
+                                                   seed=SEED))
+    (owner, info), t_dfep = wall(lambda: dfep.partition(
+        road, k=K, seed=SEED, max_rounds=4000, stall_rounds=64))
+    part = etsch.compile_partitioning(road, owner, K)
+    m, t = wall(lambda: metrics.evaluate(road, owner, K, part=part))
+    res = A.etsch_sssp(part, 0)
+    dist = sssp_oracle(csr_of(road), 0)
+    ecc = int(dist[np.isfinite(dist)].max())
+    log({"phase": "etsch.road_gain", "dataset": "usroads",
+         "n_vertices": road.n_vertices, "n_edges": road.n_edges,
+         "load_wall_s": t_load, "dfep_wall_s": t_dfep,
+         "dfep_rounds": info["rounds"], "evaluate_wall_s": t, **m.row(),
+         "etsch_supersteps": res.supersteps,
+         "etsch_local_sweeps": res.local_iters, "eccentricity_of_0": ecc})
+    require(np.array_equal(res.state.cpu().numpy(), dist),
+            "etsch_sssp on usroads differs from the scipy oracle")
+    require(m.gain == 1.0 - res.supersteps / (ecc + 1),
+            f"usroads gain {m.gain} != 1 - {res.supersteps} / ({ecc} + 1)")
+    require(m.gain > 0, f"usroads gain {m.gain} is not > 0")
+
+
+def phase_etsch(g, owner, plan, engine_sssp_state):
+    """The paper's dense ETSCH framework, its metrics and the baseline
+    partitioners on the main phase's graph and DFEP owner."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import baselines as B
+    from repro_torch.core import etsch, metrics
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    part, t = wall(lambda: etsch.compile_partitioning(g, owner, K))
+    log({"phase": "etsch.compile_partitioning", "wall_s": t,
+         "e_max": part.e_max, "state_slots": part.k * part.n_vertices,
+         "peak_mib": peak_mib()})
+
+    rng = np.random.default_rng(SEED)
+    n = g.n_vertices
+    ids = rng.permutation(n)
+    sources = rng.choice(n, N_SOURCES, replace=False)
+    prio = rng.uniform(1e-6, 1.0, n).astype(np.float32)
+    problems = {
+        "sssp": lambda: A.etsch_sssp(part, 0),
+        "cc": lambda: A.etsch_cc(part, ids=ids),
+        "multi_sssp": lambda: A.etsch_multi_sssp(part, sources),
+        "pagerank": lambda: A.etsch_pagerank(part, g.degrees(), iters=30),
+        "mis": lambda: A.etsch_mis(part, prio=prio),
+        "kcore": lambda: A.etsch_kcore(part, K_CORE),
+    }
+    results = {}
+    for name, run in problems.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(ops.LAUNCHES)
+        r, t = wall(run)
+        got = _delta(before, ops.LAUNCHES)
+        results[name] = r
+        _, t_warm = wall(run)
+        # sweeps of the local phase: counted by run_etsch for SSSP/CC, one
+        # minplus_sweep each for multi-SSSP, one pass per superstep for the
+        # plain-torch problems (PageRank, MIS, k-core)
+        sweeps = (r.local_iters if hasattr(r, "local_iters")
+                  else got["minplus_sweep"] if name == "multi_sssp"
+                  else r.supersteps)
+        log({"phase": f"etsch.{name}", "wall_s": t, "warm_wall_s": t_warm,
+             "supersteps": r.supersteps, "local_sweeps": sweeps,
+             "launches": got, "peak_mib": peak_mib()})
+        if name == "sssp":
+            for k in ETSCH_KERNELS:
+                require(got[k] > 0, f"etsch_sssp did not launch {k}")
+
+    t0 = time.perf_counter()
+    csr = csr_of(g)
+    sssp = results["sssp"].state.cpu().numpy()
+    dist0 = sssp_oracle(csr, 0)
+    require(np.array_equal(sssp, dist0),
+            "etsch_sssp differs from the scipy oracle")
+    require(torch.equal(results["sssp"].state, engine_sssp_state),
+            "etsch_sssp differs from the engine's SSSP")
+    cc = results["cc"].state.cpu().numpy()
+    require(np.array_equal(cc, labelprop_oracle(csr, ids.astype(np.float32))),
+            "etsch_cc is not the min id of each component")
+    multi = results["multi_sssp"].dist
+    require(tuple(multi.shape) == (N_SOURCES, n), f"etsch_multi_sssp: "
+            f"shape {tuple(multi.shape)}")
+    require(np.array_equal(multi.cpu().numpy(),
+                           sssp_oracle(csr, sources)),
+            "etsch_multi_sssp differs from scipy BFS")
+    rank = results["pagerank"].rank
+    pr_rel = max_rel(rank, pagerank_oracle(g))
+    require(pr_rel <= PR_ORACLE_RTOL, f"etsch_pagerank vs float64 oracle: "
+            f"max rel {pr_rel} > {PR_ORACLE_RTOL}")
+    in_set = results["mis"].in_set.cpu().numpy()
+    require(is_mis_oracle(csr, in_set) and A.is_maximal_independent_set(
+        g, results["mis"].in_set), "etsch_mis is not a maximal independent "
+        "set")
+    core = results["kcore"].in_core.cpu().numpy()
+    require(np.array_equal(core, kcore_oracle(g, K_CORE)),
+            "etsch_kcore differs from the peeling oracle")
+    log({"phase": "etsch.check", "oracle_s": time.perf_counter() - t0,
+         "equal_oracle": ["sssp", "cc", "multi_sssp", "kcore"],
+         "sssp_equal_engine": True, "pagerank_max_rel_vs_f64_oracle": pr_rel,
+         "mis_size": int(in_set.sum()), "kcore_size": int(core.sum()),
+         "multi_sssp_state_mib": 4 * K * N_SOURCES * n / 2**20})
+
+    # The gain compares ETSCH supersteps with vertex-centric rounds, which
+    # are the source's eccentricity + 1 (the last round changes nothing);
+    # it is held to that formula with scipy's eccentricity.
+    before = dict(ops.LAUNCHES)
+    m, t = wall(lambda: metrics.evaluate(g, owner, K, part=part))
+    got = _delta(before, ops.LAUNCHES)
+    ecc = int(dist0.max())
+    steps = results["sssp"].supersteps
+    log({"phase": "etsch.evaluate", "partitioner": "dfep", "wall_s": t,
+         **m.row(), "eccentricity_of_0": ecc, "launches": got})
+    require(got["minplus_sweep"] > 0, "evaluate did not launch minplus_sweep")
+    require(m.messages == plan.exchange_volume, f"MESSAGES {m.messages} != "
+            f"the plan's exchange volume {plan.exchange_volume}")
+    require(m.replication_factor == plan.replication_factor(),
+            "replication factor differs from the plan's")
+    require(m.gain == 1.0 - steps / (ecc + 1), f"gain {m.gain} != 1 - "
+            f"{steps} / ({ecc} + 1)")
+    _road_gain()
+
+    baselines = {
+        "hash": lambda: B.hash_partition(g, K),
+        "random": lambda: B.random_partition(g, K, seed=SEED),
+        "greedy": lambda: B.greedy_partition(g, K, seed=SEED),
+        "jabeja": lambda: B.jabeja_partition(g, K, seed=SEED)[0],
+    }
+    fig7 = {"dfep": m.row()}
+    for name, make in baselines.items():
+        own, t_part = wall(make)
+        mb, t_eval = wall(lambda: metrics.evaluate(g, own, K))
+        fig7[name] = mb.row()
+        log({"phase": "etsch.fig7", "partitioner": name,
+             "partition_wall_s": t_part, "evaluate_wall_s": t_eval,
+             **mb.row()})
+    launches = dict(ops.LAUNCHES)
+    for name in ETSCH_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the etsch path")
+    log({"phase": "etsch.summary", "launches": launches,
+         "fig7": {p: {k: r[k] for k in ("largest_norm", "nstdev", "messages",
+                                         "connected_frac", "gain")}
+                  for p, r in fig7.items()}})
+    return part, launches
 
 
 def _patched_like(plan, gen, arrivals: int = 32):
@@ -674,7 +909,199 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(plan, launches, gnn_launches):
+def _max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the entries where ``want`` is finite
+    (0.0 if none); infinities must match exactly, which the callers check
+    with ``torch.equal``."""
+    fin = torch.isfinite(want.double())
+    if not bool(fin.any()):
+        return 0.0
+    return float((got.double()[fin] - want.double()[fin]).abs().max())
+
+
+def slow_ms(fn, iters: int = 2) -> float:
+    """Mean ms of ``fn`` over ``iters`` eager calls after one warm call
+    (CUDA events), for calls of hundreds of ms, where a CUDA graph's saving
+    (the host launch cost) is noise."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flat_scan_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The yardstick DFEP's rank cumsum used before lane_cumsum: the K
+    columns of an [N, K] int32 array laid end to end and scanned as one flat
+    array (one device-wide scan), then each column's offset, the total of
+    the columns before it, taken off."""
+    n, k = x.shape
+    flat = torch.cumsum(x.t().reshape(-1), 0, dtype=torch.int32).view(k, n)
+    before = torch.zeros(k, dtype=torch.int32, device=x.device)
+    before[1:] = flat[:-1, -1]
+    return (flat - before[:, None]).t()
+
+
+def _dfep_rank_inputs(g, owner):
+    """DFEP's two rank-cumsum inputs on its final state: [2·e_pad, K] 0/1
+    eligibility of each slot's edge for each partition (an owned edge is
+    eligible for its owner only), in slot order, and [V, K] 0/1 presence of
+    each vertex in each partition."""
+    from repro_torch.core import dfep
+    slots = dfep.build_slots(g)
+    part_ids = torch.arange(K, device=g.device)
+    elig = ((owner.long()[:, None] == part_ids[None, :])
+            & g.edge_mask[:, None]).to(torch.int32)
+    pres = torch.zeros((g.n_vertices, K), dtype=torch.int32, device=g.device)
+    pres.index_add_(0, g.src.long(), elig)
+    pres.index_add_(0, g.dst.long(), elig)
+    return elig[slots.edge].contiguous(), (pres > 0).to(torch.int32)
+
+
+def _lane_cumsum_section(g, owner, gen, times) -> dict:
+    """lane_cumsum on DFEP's rank inputs (int32, exact against the plain
+    version and the flat scan) and on float32 values in [0, 1) (within
+    FLOAT_CUMSUM_RTOL of a float64 cumsum); timed on the [2·e_pad, K]
+    input."""
+    from repro_torch.kernels import ops, ref
+    x_slot, x_pres = _dfep_rank_inputs(g, owner)
+    shapes, err = {}, 0.0
+    for name, x in (("slots", x_slot), ("presence", x_pres)):
+        got = ops.lane_cumsum(x)
+        want = ref.cumsum_lanes(x)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs(got, want))
+        require(torch.equal(got, want), f"lane_cumsum {name} is not exact")
+        require(torch.equal(got, _flat_scan_cumsum(x)),
+                f"lane_cumsum {name} differs from the flat scan")
+        shapes[name] = list(x.shape)
+    xf = torch.rand(x_slot.shape, generator=gen, device=x_slot.device)
+    gotf = ops.lane_cumsum(xf).double()
+    wantf = torch.cumsum(xf.double(), 0)
+    rel_f = float(((gotf - wantf).abs() / wantf.clamp(min=1.0)).max())
+    plain_rel_f = float(((ref.cumsum_lanes(xf).double() - wantf).abs()
+                         / wantf.clamp(min=1.0)).max())
+    require(rel_f <= FLOAT_CUMSUM_RTOL, f"lane_cumsum float32: max rel "
+            f"{rel_f} > {FLOAT_CUMSUM_RTOL}")
+    del xf, gotf, wantf
+    s, k = x_slot.shape
+    t = times(kernel=lambda: ops.lane_cumsum(x_slot),
+              flat_scan=lambda: _flat_scan_cumsum(x_slot))
+    t["presence_kernel_ms"] = device_ms(lambda: ops.lane_cumsum(x_pres))
+    # torch.cumsum down dim 0 runs K serial scans (~0.7 s a call here)
+    t["plain_ms"] = slow_ms(lambda: ref.cumsum_lanes(x_slot))
+    t["library_ms"] = slow_ms(lambda: torch.cumsum(x_slot, 0))
+    t["bound_ms"], t["bound_by"] = _bound(8 * s * k, s * k)
+    out = {"shapes": shapes, "max_abs_err": err,
+           "float32_max_rel_vs_f64": rel_f,
+           "plain_float32_max_rel_vs_f64": plain_rel_f, **t}
+    log({"phase": "kernels.lane_cumsum", **out})
+    return out
+
+
+def _frontier_min_section(part, gen, times) -> dict:
+    """frontier_min on a [K, V] state with ~20% +inf, the real member mask,
+    and the same with vertex 0 in no partition; float32 and bfloat16;
+    exact against the plain version."""
+    from repro_torch.kernels import ops, ref
+    dev = part.device
+    k, v = part.k, part.n_vertices
+    state = torch.rand((k, v), generator=gen, device=dev) * 30
+    state = torch.where(torch.rand((k, v), generator=gen, device=dev) < 0.2,
+                        float("inf"), state)
+    lonely = part.member.clone()
+    lonely[:, 0] = False
+    err = 0.0
+    for name, member in (("member", part.member), ("no_member_col0", lonely)):
+        for dtype in (torch.float32, torch.bfloat16):
+            st = state.to(dtype)
+            got = ops.frontier_min(st, member)
+            want = ref.kreduce_min(st, member)
+            torch.cuda.synchronize()
+            err = max(err, _max_abs(got, want))
+            require(torch.equal(got, want),
+                    f"frontier_min {name} {dtype} is not exact")
+    require(bool(torch.isinf(ops.frontier_min(state, lonely)[0])),
+            "frontier_min: a column with no member is not +inf")
+    masked = torch.where(part.member, state, float("inf"))
+    t = times(kernel=lambda: ops.frontier_min(state, part.member),
+              plain=lambda: ref.kreduce_min(state, part.member),
+              library=lambda: torch.amin(masked, 0))
+    # the state is read only where member: a non-member entry is never
+    # needed (the kernel skips its load)
+    members = int(part.member.sum())
+    t["bound_ms"], t["bound_by"] = _bound(k * v + 4 * members + 4 * v,
+                                          members)
+    out = {"shape": [k, v], "max_abs_err": err, **t}
+    log({"phase": "kernels.frontier_min", **out})
+    return out
+
+
+def _minplus_section(g, part, gen, times, sssp_state) -> dict:
+    """minplus_sweep on ETSCH's flat [K·V] state over its K·e_max edges and
+    on a [V] state over the graph's edges, costs 1 and 0, ~5% of the live
+    edges masked out and ~20% of the values +inf; exact against the plain
+    version. Timed on the ETSCH sweep at cost 1, and also on SSSP's fixed
+    point (``sssp_state`` on every member), where no candidate wins and the
+    kernel issues no atomic: the difference is the atomics' share."""
+    from repro_torch.kernels import ops, ref
+    dev = part.device
+    kv = part.k * part.n_vertices
+
+    def state(n, member=None):
+        x = torch.rand(n, generator=gen, device=dev) * 30
+        x = torch.where(torch.rand(n, generator=gen, device=dev) < 0.2,
+                        float("inf"), x)
+        return x if member is None else torch.where(member, x, float("inf"))
+
+    def thin(mask):
+        return mask & (torch.rand(mask.shape, generator=gen, device=dev)
+                       >= 0.05)
+
+    cases = {
+        "etsch": (state(kv, part.member.reshape(-1)), part.flat_src,
+                  part.flat_dst, thin(part.flat_mask)),
+        "graph": (state(g.n_vertices), g.src, g.dst, thin(g.edge_mask)),
+    }
+    err = 0.0
+    for name, args in cases.items():
+        for cost in (1.0, 0.0):
+            got = ops.minplus_sweep(*args, cost=cost)
+            want = ref.minplus_relax(*args, cost=cost)
+            torch.cuda.synchronize()
+            err = max(err, _max_abs(got, want))
+            require(torch.equal(got, want),
+                    f"minplus_sweep {name} cost {cost} is not exact")
+    dist, src, dst, mask = cases["etsch"]
+    s64, d64 = src.long(), dst.long()
+    cu = torch.where(mask, dist[s64] + 1.0, float("inf"))
+    cv = torch.where(mask, dist[d64] + 1.0, float("inf"))
+    t = times(kernel=lambda: ops.minplus_sweep(dist, src, dst, mask),
+              plain=lambda: ref.minplus_relax(dist, src, dst, mask),
+              library=lambda: dist.scatter_reduce(0, d64, cu, "amin")
+              .scatter_reduce_(0, s64, cv, "amin"))
+    t["graph_kernel_ms"] = device_ms(lambda: ops.minplus_sweep(
+        *cases["graph"]))
+    fixed = torch.where(part.member, sssp_state[None, :],
+                        float("inf")).reshape(-1)
+    require(torch.equal(ops.minplus_sweep(fixed, src, dst, part.flat_mask),
+                        fixed), "SSSP's fixed point moved under a sweep")
+    t["fixpoint_kernel_ms"] = device_ms(lambda: ops.minplus_sweep(
+        fixed, src, dst, part.flat_mask))
+    live, e = int(mask.sum()), int(mask.numel())
+    t["bound_ms"], t["bound_by"] = _bound(8 * kv + e + 8 * live, 2 * live)
+    out = {"shape": [kv, e], "live_edges": live, "max_abs_err": err, **t}
+    log({"phase": "kernels.minplus_sweep", **out})
+    return out
+
+
+def phase_kernels(plan, launches, gnn_launches, g, owner, part,
+                  etsch_launches, sssp_state):
     from repro_torch.engine import kernels as Kn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -780,6 +1207,9 @@ def phase_kernels(plan, launches, gnn_launches):
          "masked_update": mu_t, "masked_update_f8": mu8_t})
     gs_err = _gspmm_checks(Kn, plan, patched, gen)
     gs_t = _gspmm_timing(Kn, plan, gen, times)
+    lc = _lane_cumsum_section(g, owner, gen, times)
+    fm = _frontier_min_section(part, gen, times)
+    mp = _minplus_section(g, part, gen, times, sssp_state)
 
     seg_bound, seg_by = _seg_bound(plan)
     mu_bound, mu_by = _mu_bound(plan)
@@ -819,14 +1249,42 @@ def phase_kernels(plan, launches, gnn_launches):
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "hub_run_ms")},
          "hub_run_ms_f8": gs_t["f8"]["hub_run_ms"]},
+        {"name": "lane_cumsum", "route": "cuda",
+         "source": "src/repro_torch/csrc/lane_cumsum.cu",
+         "replaces": "src/repro/kernels/lane_cumsum.py:24",
+         "launches": launches["lane_cumsum"], "max_abs_err": lc["max_abs_err"],
+         "ms": lc["kernel_ms"], "plain_ms": lc["plain_ms"],
+         "bound_ms": lc["bound_ms"], "bound_by": lc["bound_by"],
+         "library_ms": lc["library_ms"], "flat_scan_ms": lc["flat_scan_ms"],
+         "shape": lc["shapes"]["slots"],
+         "presence_ms": lc["presence_kernel_ms"]},
+        {"name": "frontier_min", "route": "cuda",
+         "source": "src/repro_torch/csrc/frontier_min.cu",
+         "replaces": "src/repro/kernels/frontier_min.py:20",
+         "launches": etsch_launches["frontier_min"],
+         "max_abs_err": fm["max_abs_err"],
+         "ms": fm["kernel_ms"], "plain_ms": fm["plain_ms"],
+         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+         "library_ms": fm["library_ms"], "shape": fm["shape"]},
+        {"name": "minplus_sweep", "route": "cuda",
+         "source": "src/repro_torch/csrc/minplus_sweep.cu",
+         "replaces": "src/repro/kernels/minplus_sweep.py:28",
+         "launches": etsch_launches["minplus_sweep"],
+         "max_abs_err": mp["max_abs_err"],
+         "ms": mp["kernel_ms"], "plain_ms": mp["plain_ms"],
+         "bound_ms": mp["bound_ms"], "bound_by": mp["bound_by"],
+         "library_ms": mp["library_ms"], "shape": mp["shape"],
+         "graph_ms": mp["graph_kernel_ms"],
+         "fixpoint_ms": mp["fixpoint_kernel_ms"]},
     ]}
 
 
 def phase_cpu_equal():
-    from repro_torch.core import dfep, graph
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import dfep, etsch, graph, metrics
     from repro_torch import engine as E
 
-    out, starts = {}, None
+    out, starts, ids = {}, None, None
     for dev in ("cuda", "cpu"):
         g = graph.load_dataset("dblp", scale=CPU_CHECK_SCALE, seed=SEED,
                                device=dev)
@@ -837,23 +1295,42 @@ def phase_cpu_equal():
                                      stall_rounds=64, device=dev)
         plan = E.compile_plan(g, owner, K, device=dev)
         r = E.engine_sssp(E.Engine(plan), 0)
+        if ids is None:      # the same CC ids on both devices
+            ids = np.random.default_rng(SEED).permutation(g.n_vertices)
+        part = etsch.compile_partitioning(g, owner, K, device=dev)
+        es = A.etsch_sssp(part, 0)
+        ec = A.etsch_cc(part, ids=ids)
+        m = metrics.evaluate(g, owner, K, part=part)
         out[dev] = (owner.cpu(), info["rounds"], r.state.cpu(), r.row(),
-                    time.perf_counter() - t0)
+                    time.perf_counter() - t0,
+                    {"sssp": (es.state.cpu(), es.supersteps, es.local_iters),
+                     "cc": (ec.state.cpu(), ec.supersteps, ec.local_iters)},
+                    m.row())
     require(torch.equal(out["cuda"][0], out["cpu"][0]),
             "DFEP owner differs between card and CPU")
     require(out["cuda"][1] == out["cpu"][1], "DFEP rounds differ")
     require(torch.equal(out["cuda"][2], out["cpu"][2]), "SSSP differs")
     require(out["cuda"][3] == out["cpu"][3], "SSSP counters differ")
+    for name in ("sssp", "cc"):
+        (sa, *ca), (sb, *cb) = out["cuda"][5][name], out["cpu"][5][name]
+        require(torch.equal(sa, sb), f"etsch_{name} differs")
+        require(ca == cb, f"etsch_{name} counters differ: {ca} vs {cb}")
+    require(out["cuda"][6] == out["cpu"][6], f"metrics differ: "
+            f"{out['cuda'][6]} vs {out['cpu'][6]}")
     log({"phase": "cpu_equal", "scale": CPU_CHECK_SCALE, "rounds":
-         out["cuda"][1], "sssp": out["cuda"][3], "wall_s_cuda":
-         out["cuda"][4], "wall_s_cpu": out["cpu"][4]})
+         out["cuda"][1], "sssp": out["cuda"][3],
+         "etsch": {n: c[1:] for n, c in out["cuda"][5].items()},
+         "metrics": out["cuda"][6], "wall_s_cuda": out["cuda"][4],
+         "wall_s_cpu": out["cpu"][4]})
 
 
 def main() -> int:
     card = phase_device()
-    g, plan, launches = phase_main()
+    g, owner, plan, launches, sssp_state = phase_main()
     gnn_launches = phase_gnn(g, plan)
-    kernel_line = phase_kernels(plan, launches, gnn_launches)
+    part, etsch_launches = phase_etsch(g, owner, plan, sssp_state)
+    kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
+                                etsch_launches, sssp_state)
     phase_cpu_equal()
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -1,9 +1,11 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``.
 
-Graph → DFEP edge partitioning → compacted per-partition CSR plan → ETSCH
-supersteps (SSSP, WCC, PageRank), with hand-written CUDA kernels for the
-per-target segmented reduce and the replica update (``csrc/``). It imports
-``torch`` and numpy and nothing of the JAX package. Entry points run on the
-card unless the caller passes ``device="cpu"``.
+Graph → DFEP edge partitioning → compacted per-partition CSR plan → engine
+supersteps (SSSP, WCC, PageRank and the GNN programs), and the paper's own
+dense ETSCH framework with its partition metrics and baselines, with
+hand-written CUDA kernels (``csrc/``) for the segmented reduce, the replica
+update, gSpMM, the min-plus sweep, the frontier min and DFEP's rank
+cumsum. It imports ``torch`` and numpy and nothing of the JAX package.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
-from . import core, engine  # noqa: F401
+from . import core, engine, kernels  # noqa: F401

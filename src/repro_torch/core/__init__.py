@@ -1,6 +1,8 @@
-"""Core of the paper in PyTorch: the graph container and DFEP edge
-partitioning."""
-from . import dfep, graph  # noqa: F401
+"""Core of the paper in PyTorch: the graph container, DFEP edge
+partitioning, the ETSCH framework with its problems, the partition metrics
+and the baseline partitioners."""
+from . import algorithms, baselines, dfep, etsch, graph, metrics  # noqa: F401
 from .dfep import DfepConfig, partition, run_dfep  # noqa: F401
+from .etsch import Partitioning, compile_partitioning, run_etsch  # noqa: F401
 from .graph import (Graph, from_edge_array, graph_from_numpy,  # noqa: F401
                     load_dataset)

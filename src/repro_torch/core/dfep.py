@@ -16,9 +16,12 @@ units; one round is the paper's (step 1, step 2, step 3):
           units, spread over its frontier (or presence) vertices.
 
 The rounds run as a Python loop on the graph's device; the loop test is one
-device→host read per round. ``argmax`` keeps the first index on ties, as
-``jnp.argmax`` does; boolean scatter-``max`` becomes an integer scatter-add
-tested ``> 0``; ``_hash01`` emulates uint32 arithmetic in int64.
+device→host read per round. The two rank cumsums of a round, down [2E, K]
+and [V, K], go through ``kernels.ops.lane_cumsum`` (a Hopper kernel on the
+card, ``torch.cumsum`` on the CPU). ``argmax`` keeps the first index on
+ties, as ``jnp.argmax`` does; boolean scatter-``max`` becomes an integer
+scatter-add tested ``> 0``; ``_hash01`` emulates uint32 arithmetic in
+int64.
 
 The reference draws the K start vertices with ``jax.random.choice``, which
 torch cannot reproduce: :func:`partition` takes them as ``starts`` and
@@ -32,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .graph import Graph, resolve_device
 
 FREE = -1  # owner value for unsold edges
@@ -147,23 +151,6 @@ def _sizes(owner: torch.Tensor, k: int) -> torch.Tensor:
     return counts[2:]
 
 
-def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 cumsum down the rows of an [N, K] int32 0/1 array,
-    equal to ``torch.cumsum(x, 0)``.
-
-    A cumsum along dim 0 of a tall [N, K] array runs on the GPU as K serial
-    scans of N steps each; here the K columns are laid end to end and
-    scanned as one flat array (CUB's device-wide scan on the GPU), then
-    each column's offset — the total of the columns before it — is taken
-    off. Exact in int32 while N·K < 2**31.
-    """
-    n, k = x.shape
-    flat = torch.cumsum(x.t().reshape(-1), 0, dtype=torch.int32).view(k, n)
-    before = torch.zeros(k, dtype=torch.int32, device=x.device)
-    before[1:] = flat[:-1, -1]
-    return (flat - before[:, None]).t()
-
-
 def _scatter_any(n: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
     """[n, K] bool: OR of ``flags`` rows scattered to ``idx`` (the
     reference's boolean scatter-max, as an exact integer scatter-add)."""
@@ -213,7 +200,7 @@ def _round(g: Graph, slots: Slots, cfg: DfepConfig,
     # on the vertex only, so it is hashed over [V, K] and gathered per slot
     # (the same values the reference hashes per slot).
     elig_slot = eligi[slots.edge]                                    # [2E, K]
-    cum = _cumsum_rows(elig_slot)
+    cum = ops.lane_cumsum(elig_slot)
     exc = cum - elig_slot                                            # exclusive
     rank = exc - exc[slots.seg_first]                                # [2E, K]
     sv = slots.vertex
@@ -293,7 +280,7 @@ def _round(g: Graph, slots: Slots, cfg: DfepConfig,
     n_pres = pres_i.sum(dim=0, dtype=i32).clamp(min=1)               # [K]
     p_base = grant // n_pres
     p_rem = grant - p_base * n_pres                                  # [K]
-    p_rank = _cumsum_rows(pres_i) - pres_i                           # [V, K]
+    p_rank = ops.lane_cumsum(pres_i) - pres_i                      # [V, K]
     seven = torch.full((1,), 7, dtype=i32, device=dev)
     p_rot = (_hash01(seven[:, None], part_ids[None, :], state.rounds)
              * n_pres.to(torch.float32)).to(i32)                     # [1, K]

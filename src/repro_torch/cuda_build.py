@@ -7,7 +7,8 @@ and the flags, so an edited source rebuilds and an unchanged one is reused.
 Libraries are built at first use; :func:`build` builds several at once, one
 ``nvcc`` process per source, all started together. Nothing is compiled when
 this module is imported, and a machine without ``nvcc`` raises when a kernel
-is needed.
+is needed. :func:`on_card`, :func:`check` and :func:`stream` are the
+dispatch and argument checks every kernel wrapper shares.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,10 +40,43 @@ SIGNATURES = {
                       [_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                   _P]),
     "gspmm": ("gspmm_f32", [_P] * 11 + [_I] * 7 + [_P]),
+    "lane_cumsum": ("lane_cumsum", [_P] * 3 + [ctypes.c_longlong]
+                    + [_I] * 3 + [_P]),
+    "frontier_min": ("frontier_min", [_P] * 3 + [_I, ctypes.c_longlong, _I,
+                                                 _P]),
+    "minplus_sweep": ("minplus_sweep_f32", [_P] * 5
+                      + [ctypes.c_longlong] * 2 + [ctypes.c_float, _P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+
+
+def on_card(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; anything else (or a
+    mix) raises — a kernel wrapper never silently changes device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors must all be on one CPU or CUDA device, got "
+                     f"{sorted({str(t.device) for t in tensors})}")
+
+
+def check(t, name: str, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the int the C entry points take."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def find_nvcc() -> str:

@@ -45,6 +45,9 @@ import math
 import torch
 
 from .. import cuda_build
+from ..cuda_build import check as _check
+from ..cuda_build import on_card as _on_card
+from ..cuda_build import stream as _stream
 
 _IDENTITY = {"min": math.inf, "add": 0.0, "max": -math.inf}
 _OP_CODE = {"min": 0, "add": 1, "max": 2}
@@ -59,28 +62,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; anything else (or a
-    mix) raises — the caller never silently changes device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
-    raise ValueError(f"tensors must all be on one CPU or CUDA device, got "
-                     f"{sorted({str(t.device) for t in tensors})}")
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           shape: tuple) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-            f"(contiguous={t.is_contiguous()})")
-
-
 def _check_plan(plan, *names: str) -> None:
     """Check the plan fields a kernel reads (dtype, shape, contiguity)."""
     k, e_max, v_max = plan.k, plan.e_max, plan.v_max
@@ -93,10 +74,6 @@ def _check_plan(plan, *names: str) -> None:
             "csr_fill": (torch.int32, (k,))}
     for name in names:
         _check(getattr(plan, name), f"plan.{name}", *spec[name])
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,130 @@
+"""Hopper kernels for the paper's standalone hot spots, with their plain
+PyTorch versions (``ref``).
+
+``lane_cumsum``
+    Inclusive cumsum down the rows of a tall [S, K] array: DFEP's step-1
+    rank cumsum. CUDA C++ in ``csrc/lane_cumsum.cu`` (tile totals, a scan
+    of the totals per column, a local scan plus carry). Replaces
+    ``repro/kernels/lane_cumsum.py::lane_cumsum``.
+
+``frontier_min``
+    ETSCH aggregation: the masked min over the partition axis of a [K, V]
+    state. CUDA C++ in ``csrc/frontier_min.cu`` (one thread per vertex
+    column). Replaces ``repro/kernels/frontier_min.py::frontier_min``.
+
+``minplus_sweep``
+    One undirected min-plus relaxation sweep over an edge list: the ETSCH
+    local phase and the vertex-centric references' round. CUDA C++ in
+    ``csrc/minplus_sweep.cu`` (a copy, then an atomic scatter-min of both
+    directions of every edge, candidates read from the input). Replaces
+    ``repro/kernels/minplus_sweep.py::minplus_sweep``.
+
+Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; a mix raises, and there is no fallback from one to
+the other. Each launch adds one to :data:`LAUNCHES`. A dtype a kernel does
+not take raises ``ValueError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_build
+from ..cuda_build import check as _check
+from ..cuda_build import on_card as _on_card
+from ..cuda_build import stream as _stream
+from . import ref
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0}
+
+#: Elements per lane_cumsum tile (rows per tile = this // K): a [1024, 16]
+#: int32 tile is 64 KB, one block's work.
+CUMSUM_TILE_ELEMS = 16384
+_CUMSUM_DTYPES = {torch.int32: 0, torch.float32: 1}
+_MIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _dtype_code(t: torch.Tensor, table: dict, kernel: str) -> int:
+    if t.dtype not in table:
+        raise ValueError(f"{kernel}: dtype {t.dtype} is not supported "
+                         f"(takes {', '.join(map(str, table))})")
+    return table[t.dtype]
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def lane_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along axis 0 of x [S, K] (int32 or float32), in x's
+    dtype. CUDA tensors launch the kernel; CPU tensors run
+    :func:`ref.cumsum_lanes`. int32 is exact; float32 sums in another order
+    than a sequential scan."""
+    code = _dtype_code(x, _CUMSUM_DTYPES, "lane_cumsum")
+    if x.ndim != 2:
+        raise ValueError(f"lane_cumsum: expected [S, K], got {tuple(x.shape)}")
+    if not _on_card(x):
+        return ref.cumsum_lanes(x)
+    s, k = (int(n) for n in x.shape)
+    _check(x, "x", x.dtype, (s, k))
+    out = torch.empty_like(x)
+    if s == 0 or k == 0:
+        return out
+    rows = max(1, CUMSUM_TILE_ELEMS // k)
+    scratch = torch.empty(-(-s // rows) * k, dtype=x.dtype, device=x.device)
+    rc = cuda_build.entry("lane_cumsum")(x.data_ptr(), out.data_ptr(),
+                                         scratch.data_ptr(), s, k, rows,
+                                         code, _stream())
+    _launched("lane_cumsum", rc)
+    return out
+
+
+def frontier_min(state: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
+    """Masked min over axis 0: state [K, V] (float32 or bfloat16), member
+    [K, V] bool -> [V] in state's dtype, ``+inf`` where no row is a member.
+    Exact. CUDA tensors launch the kernel; CPU tensors run
+    :func:`ref.kreduce_min`."""
+    code = _dtype_code(state, _MIN_DTYPES, "frontier_min")
+    if state.ndim != 2:
+        raise ValueError(f"frontier_min: expected state [K, V], got "
+                         f"{tuple(state.shape)}")
+    if not _on_card(state, member):
+        return ref.kreduce_min(state, member)
+    k, v = (int(n) for n in state.shape)
+    _check(state, "state", state.dtype, (k, v))
+    _check(member, "member", torch.bool, (k, v))
+    out = torch.empty(v, dtype=state.dtype, device=state.device)
+    rc = cuda_build.entry("frontier_min")(state.data_ptr(), member.data_ptr(),
+                                          out.data_ptr(), k, v, code,
+                                          _stream())
+    _launched("frontier_min", rc)
+    return out
+
+
+def minplus_sweep(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  mask: torch.Tensor, cost: float = 1.0) -> torch.Tensor:
+    """One undirected min-plus relaxation sweep, Jacobi: dist [V] float32,
+    src/dst [E] int32 in [0, V), mask [E] bool -> [V]. Bit-identical to
+    :func:`ref.minplus_relax`. CUDA tensors launch the kernel; CPU tensors
+    run the plain version."""
+    _dtype_code(dist, {torch.float32: 0}, "minplus_sweep")
+    if not _on_card(dist, src, dst, mask):
+        return ref.minplus_relax(dist, src, dst, mask, cost)
+    v, e = int(dist.numel()), int(src.numel())
+    _check(dist, "dist", torch.float32, (v,))
+    _check(src, "src", torch.int32, (e,))
+    _check(dst, "dst", torch.int32, (e,))
+    _check(mask, "mask", torch.bool, (e,))
+    out = torch.empty_like(dist)
+    rc = cuda_build.entry("minplus_sweep")(
+        dist.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), v, e, float(cost), _stream())
+    _launched("minplus_sweep", rc)
+    return out

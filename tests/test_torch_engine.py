@@ -167,7 +167,9 @@ def test_package_imports_no_jax_and_no_reference():
     for mod in ("repro_torch.core.dfep", "repro_torch.core.graph",
                 "repro_torch.engine.kernels", "repro_torch.engine.plan",
                 "repro_torch.engine.runtime", "repro_torch.engine.programs",
-                "repro_torch.cuda_build"):
+                "repro_torch.cuda_build", "repro_torch.kernels.ops",
+                "repro_torch.core.etsch", "repro_torch.core.algorithms",
+                "repro_torch.core.metrics", "repro_torch.core.baselines"):
         assert mod in seen["mods"]
 
 

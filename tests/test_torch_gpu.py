@@ -238,3 +238,130 @@ def test_gnn_programs_on_card_match_cpu():
         scale = float(want.abs().max())
         torch.testing.assert_close(out[dev][name].state.cpu(), want, rtol=0,
                                    atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_lane_cumsum_matches_plain_on_card():
+    """int32 exact, including S not a multiple of the tile, S = 1, K = 1
+    and K wider than a block; float32 small integers exact (every partial
+    sum is an integer below 2^24); random float32 in [0, 1) within 1e-4
+    of the float64 running sum (float32 rounding over 7·10^4 terms, summed
+    in another order). One launch per call."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    rng = np.random.default_rng(3)
+    for s, k in ((1, 16), (1, 1), (1024, 16), (1025, 16), (70_001, 16),
+                 (4_097, 33), (300, 300), (5, 1)):
+        x = torch.from_numpy(rng.integers(-5, 10, (s, k)).astype(np.int32))
+        for xs in (x, x.float()):
+            before = TO.LAUNCHES["lane_cumsum"]
+            got = TO.lane_cumsum(xs.to(dev))
+            torch.cuda.synchronize()
+            assert TO.LAUNCHES["lane_cumsum"] == before + 1
+            assert got.dtype == xs.dtype
+            assert torch.equal(got.cpu(), TO.lane_cumsum(xs)), (s, k, xs.dtype)
+    x = torch.from_numpy(rng.random((70_001, 16)).astype(np.float32))
+    want = torch.cumsum(x.double(), 0)
+    got = TO.lane_cumsum(x.to(dev)).cpu().double()
+    assert float(((got - want).abs() / want.clamp(min=1.0)).max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_frontier_min_matches_plain_on_card():
+    """Exact in float32 and bfloat16; a column with no member gives +inf;
+    one launch per call."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    gen = torch.Generator().manual_seed(4)
+    for k, v in ((16, 5000), (7, 333), (1, 3)):
+        state = torch.rand((k, v), generator=gen) * 100 - 20
+        state = torch.where(torch.rand((k, v), generator=gen) < 0.1,
+                            float("inf"), state)
+        member = torch.rand((k, v), generator=gen) < 0.4
+        member[:, 0] = False
+        for dtype in (torch.float32, torch.bfloat16):
+            st = state.to(dtype)
+            before = TO.LAUNCHES["frontier_min"]
+            got = TO.frontier_min(st.to(dev), member.to(dev))
+            torch.cuda.synchronize()
+            assert TO.LAUNCHES["frontier_min"] == before + 1
+            assert got.dtype == dtype
+            assert torch.equal(got.cpu(), TO.frontier_min(st, member))
+            assert torch.isinf(got[0]).item()
+
+
+@pytest.mark.gpu
+def test_minplus_sweep_matches_plain_on_card():
+    """Bit-identical to the plain version, with +inf and negative
+    distances, masked, duplicate and self-target edges, at costs 1, 0 and
+    0.5; one launch per call."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    rng = np.random.default_rng(5)
+    v, e = 2_000, 9_000
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    src[:500], dst[:500] = src[500:1000], dst[500:1000]
+    dst[-20:] = src[-20:]
+    mask = rng.random(e) < 0.9
+    dist = np.where(rng.random(v) < 0.3, rng.random(v) * 10 - 3,
+                    np.inf).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (dist, src, dst, mask)]
+    for cost in (1.0, 0.0, 0.5):
+        before = TO.LAUNCHES["minplus_sweep"]
+        got = TO.minplus_sweep(*[a.to(dev) for a in args], cost=cost)
+        torch.cuda.synchronize()
+        assert TO.LAUNCHES["minplus_sweep"] == before + 1
+        assert torch.equal(got.cpu(), TO.minplus_sweep(*args, cost=cost))
+
+
+@pytest.mark.gpu
+def test_dfep_and_etsch_on_card_equal_cpu():
+    """DFEP on a small graph gives the CPU's owner and rounds now that its
+    rank cumsum goes through lane_cumsum (launched on the card); ETSCH
+    SSSP, CC (same ids), multi-source SSSP, k-core and MIS (same
+    priorities) and the partition metrics equal the CPU's, through
+    minplus_sweep and frontier_min."""
+    from repro_torch.core import algorithms as TA
+    from repro_torch.core import etsch as TEt
+    from repro_torch.core import metrics as TM
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    rng = np.random.default_rng(6)
+    out, inputs = {}, None
+    for d in (dev, "cpu"):
+        g = TG.largest_component(TG.barabasi_albert(400, 3, seed=2,
+                                                    device=d))
+        before = dict(TO.LAUNCHES)
+        owner, info = TD.partition(g, k=4, seed=0, max_rounds=400,
+                                   stall_rounds=16, device=d)
+        if inputs is None:
+            n = g.n_vertices
+            inputs = {"ids": rng.permutation(n),
+                      "prio": rng.uniform(1e-6, 1.0, n).astype(np.float32),
+                      "sources": np.array([0, 5, n - 1])}
+        part = TEt.compile_partitioning(g, owner, 4, device=d)
+        out[d] = {
+            "owner": owner.cpu(), "rounds": info["rounds"],
+            "sssp": TA.etsch_sssp(part, 0), "cc": TA.etsch_cc(
+                part, ids=inputs["ids"]),
+            "multi": TA.etsch_multi_sssp(part, inputs["sources"]),
+            "kcore": TA.etsch_kcore(part, 3),
+            "mis": TA.etsch_mis(part, prio=inputs["prio"]),
+            "metrics": TM.evaluate(g, owner, 4, part=part).row(),
+            "launches": {n: TO.LAUNCHES[n] - before[n] for n in TO.LAUNCHES}}
+    assert torch.equal(out[dev]["owner"], out["cpu"]["owner"])
+    assert out[dev]["rounds"] == out["cpu"]["rounds"]
+    for name in ("sssp", "cc"):
+        a, b = out[dev][name], out["cpu"][name]
+        assert torch.equal(a.state.cpu(), b.state)
+        assert (a.supersteps, a.local_iters) == (b.supersteps, b.local_iters)
+    for name, field in (("multi", "dist"), ("kcore", "in_core"),
+                        ("mis", "in_set")):
+        a, b = out[dev][name], out["cpu"][name]
+        assert torch.equal(getattr(a, field).cpu(), getattr(b, field))
+        assert a.supersteps == b.supersteps
+    assert out[dev]["metrics"] == out["cpu"]["metrics"]
+    launched = out[dev]["launches"]
+    assert min(launched.values()) > 0, launched
+    assert out["cpu"]["launches"] == {n: 0 for n in TO.LAUNCHES}

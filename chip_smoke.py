@@ -6,7 +6,7 @@ Phases, in the order they run (any failure raises, so the process exits
 non-zero with no "ok" line):
 
 1. device   — require CUDA; print the card's name and power limit
-              (nvidia-smi); build the six CUDA kernels from
+              (nvidia-smi); build the seven CUDA kernels from
               ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, in
               parallel.
 2. main     — the paper's pipeline at the EC2 scale, through the user entry
@@ -53,7 +53,23 @@ non-zero with no "ok" line):
               through ``metrics.evaluate``. The counters are zeroed before
               it; minplus_sweep and frontier_min must rise in
               ``etsch_sssp`` and minplus_sweep in ``evaluate``.
-5. kernels  — each kernel against its plain version on the main path's plan
+5. lm       — Mamba serving at falcon-mamba-7b's full width and depth
+              (64 layers, d_model 4096, d_inner 8192, d_state 16, vocab
+              65,024): ``lm.init_params`` on the card from a seeded
+              generator (float32, 27.1 GiB), then B = LM_BATCH seeded
+              prompts of LM_PROMPT tokens through ``serve_step.prefill``
+              (first and warm), ``decode`` steps (ms per step) and
+              ``Engine.generate`` of LM_NEW tokens. The counters are zeroed
+              just before ``generate``; selective_scan must have run once
+              per layer and forward, n_layers · LM_NEW times. Checks: every
+              logit finite; the decode logits for token s equal the last
+              logits of a prefill of s + 1 tokens within a bound of the
+              largest (bf16_rel), while decode from a wrong cache (the conv
+              window padded as the reference pads it, or a zeroed state)
+              must fall outside it. The scan's inputs at the first and the
+              last layer of the prompt's prefill are kept for the kernels
+              phase, and the model is freed before it.
+6. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region (gspmm at
               F = 1, 8 and 128, add/max/mean, scalar and per-feature
@@ -67,12 +83,18 @@ non-zero with no "ok" line):
               calls with their host launch cost (``*_eager_ms``), gspmm
               also with only its largest hub run live and with no live slot
               (the difference is the hub run's time); prints one
-              ``{"kernels": [...]}`` line.
-6. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
+              ``{"kernels": [...]}`` line. selective_scan is held against
+              its plain loop (y and h_last within SCAN_REL) on seeded
+              inputs at the prefill shape with a zero and a random h0, at
+              S = 1, and on the lm phase's captured layer inputs, and timed
+              at the prefill shape.
+7. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
-              metrics.
+              metrics; and the falcon-mamba SMOKE model with the same
+              parameters on both: logits within bf16_rel(4), and
+              the card's greedy tokens the CPU's (up to bfloat16 ties).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -125,7 +147,23 @@ GNN_ORACLE_REL = 1e-3
 #    relative to the running sum: float32 rounding over 1.9 M terms, summed
 #    per tile and per row group rather than in order. int32 is exact.
 FLOAT_CUMSUM_RTOL = 1e-4
+#  * selective_scan kernel vs its plain loop, relative to the largest
+#    |y| and |h_last|: both float32 and the same recurrence; the kernel
+#    contracts multiply-adds and sums the 16-term dot in shuffle order
+#    (~2e-7 measured on seeded inputs), and 512 steps compound that.
+SCAN_REL = 1e-5
+#  * two bfloat16 runs of the same n-layer model that round differently,
+#    relative to the largest logit: bf16_rel(n) (below). Used for decode
+#    logits vs the last logits of a prefill of one more token (cuBLAS sums
+#    at M = 4 and at M = 2,052 in other orders; on the CPU the port gives
+#    exactly 0.0 there), and for the SMOKE model on the card vs on the CPU
+#    (cuBLAS vs the CPU's GEMMs), where greedy tokens must be the CPU's
+#    wherever the CPU's top two logits are further apart than the bound
+#    (bf16 logits tie, and a flip decides a tie).
 DBLP_SCALE, K, SEED = 1.0, 16, 0
+#: The lm phase: falcon-mamba-7b at full width and depth, B prompts of S
+#: tokens, LM_NEW new tokens each.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 512, 16
 CPU_CHECK_SCALE = 0.03
 #: The kernels each path must launch.
 MAIN_KERNELS = ("segment_reduce", "masked_update")
@@ -143,6 +181,14 @@ GSPMM_WIDTHS = (8, 128)
 #: Interleaved repeats of the largest hub run's timing (its spread is the
 #: run-to-run noise of a difference of two device times).
 HUB_REPEATS = 3
+
+
+def bf16_rel(n_layers: int) -> float:
+    """Bound between two bf16 runs of one n-layer model that round
+    differently: each layer's residual output may round one bf16 ulp
+    (2^-8 relative) the other way, and such flips add like a random walk,
+    √n · 2^-8; the bound is twice that (6.25% at 64 layers, 1.6% at 4)."""
+    return 2 * n_layers ** 0.5 * 2.0 ** -8
 
 
 def log(obj) -> None:
@@ -727,6 +773,193 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
     return part, launches
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _logits_along(cfg, params, prompts, tokens):
+    """Prefill ``prompts``, then decode fed ``tokens`` [B, n]: each step's
+    logits over the real vocabulary, float32 [B, n, V]."""
+    from repro_torch.serve import serve_step as SS
+    lg, caches = SS.prefill(cfg, params, prompts)
+    out = [lg[:, -1]]
+    s = prompts.shape[1]
+    for k in range(tokens.shape[1] - 1):
+        lg, caches = SS.decode(cfg, params, tokens[:, k:k + 1], caches, s + k)
+        out.append(lg[:, -1])
+    return torch.stack(out, 1)[..., :cfg.vocab].float()
+
+
+def _greedy_agrees(tokens, logits, rel: float) -> tuple[bool, int]:
+    """(every token within ``rel`` · max |logit| of its step's largest
+    logit and equal to the argmax where the top two are further apart,
+    the number of steps where they are)."""
+    tol = rel * float(logits.abs().max())
+    chosen = logits.gather(-1, tokens.long()[..., None])[..., 0]
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    ok = bool((chosen >= top2[..., 0] - tol).all()) and torch.equal(
+        tokens.long()[clear], logits.argmax(-1)[clear])
+    return ok, int(clear.sum())
+
+
+def phase_lm(cfg=None, dev: str = "cuda"):
+    """Mamba serving at full width and depth on the card (module docstring,
+    phase 5). Returns (the kernels' launches in ``generate``, the scan's
+    inputs at the first and last layer of the prompt's prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.serve import serve_step as SS
+
+    cfg = cfg or get_config(LM_ARCH)
+    layers = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, t_init = wall(lambda: lm.init_params(cfg, gen, dev))
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    _, d_in, dt_rank = ssm_dims(cfg)
+    log({"phase": "lm.init", "arch": cfg.name, "n_layers": layers,
+         "d_model": cfg.d_model, "d_inner": d_in, "d_state":
+             cfg.ssm.d_state, "dt_rank": dt_rank, "vocab_pad":
+             lm.vocab_pad(cfg), "params": n_params, "param_count":
+             cfg.param_count(), "param_bytes": sum(
+                 t.numel() * t.element_size() for t in leaves),
+         "wall_s": t_init, "peak_mib": peak_mib()})
+
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    ops.reset_launches()
+    (logits, caches), t_first = wall(lambda: SS.prefill(cfg, params,
+                                                        prompts))
+    require(ops.LAUNCHES["selective_scan"] == layers,
+            f"prefill launched selective_scan "
+            f"{ops.LAUNCHES['selective_scan']} times, not {layers}")
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    require(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, lm.vocab_pad(cfg)),
+            f"prefill logits of shape {tuple(logits.shape)}")
+    t_warm = wall(lambda: SS.prefill(cfg, params, prompts))[1]
+    tok = SS.greedy_token(logits[:, -1:], cfg.vocab)
+
+    def decode_run():
+        c, t, lg = caches, tok, None
+        for n in range(LM_PROMPT, LM_PROMPT + LM_NEW - 1):
+            lg, c = SS.decode(cfg, params, t, c, n)
+            t = SS.greedy_token(lg[:, -1:], cfg.vocab)
+        return lg
+
+    before = ops.LAUNCHES["selective_scan"]
+    last, t_dec_first = wall(decode_run)
+    require(ops.LAUNCHES["selective_scan"] - before == layers * (LM_NEW - 1),
+            "decode did not launch selective_scan once per layer and step")
+    require(bool(torch.isfinite(last).all()), "decode logits not finite")
+    t_dec = wall(decode_run)[1]
+    log({"phase": "lm.prefill_decode", "batch": LM_BATCH,
+         "prompt_len": LM_PROMPT, "prefill_first_s": t_first,
+         "prefill_warm_s": t_warm,
+         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_warm,
+         "decode_steps": LM_NEW - 1,
+         "decode_ms_per_step_first": 1e3 * t_dec_first / (LM_NEW - 1),
+         "decode_ms_per_step": 1e3 * t_dec / (LM_NEW - 1),
+         "decode_tokens_per_s": LM_BATCH * (LM_NEW - 1) / t_dec,
+         "peak_mib": peak_mib()})
+
+    # the main path: the counters from 0, one generate, read just after
+    engine = SS.Engine(cfg, params, s_max=LM_PROMPT + LM_NEW)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, t_gen = wall(lambda: engine.generate(prompts, LM_NEW))
+    launches = dict(ops.LAUNCHES)
+    gen_peak = peak_mib()
+    require(launches["selective_scan"] == layers * LM_NEW,
+            f"generate launched selective_scan {launches['selective_scan']} "
+            f"times, not {layers} x {LM_NEW}")
+    require(tuple(out.shape) == (LM_BATCH, LM_NEW)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "generate's tokens are not [B, n_new] ids of the vocabulary")
+
+    # decode for token s against a prefill of s + 1 tokens; and, to show
+    # the bound tells a right cache from a wrong one, decode from the conv
+    # window padded as the reference's Engine.generate pads it at a prompt
+    # of d_conv - 1 tokens, and from a zeroed SSM state
+    full, _, _ = lm.forward_lm(cfg, params, torch.cat([prompts, tok], 1))
+    want = full[:, -1].float()
+    scale = float(want.abs().max())
+    require(bool(torch.isfinite(full).all()), "prefill logits not finite")
+    conv, h = caches["l0"]
+    rel = {}
+    for name, c in (("right", caches),
+                    ("conv_padded", {"l0": (torch.nn.functional.pad(
+                        conv, (0, 0, 0, LM_NEW)), h)}),
+                    ("state_zeroed", {"l0": (conv, torch.zeros_like(h))})):
+        dec, _ = SS.decode(cfg, params, tok, c, LM_PROMPT)
+        require(bool(torch.isfinite(dec).all()), "decode logits not finite")
+        rel[name] = float((dec[:, 0].float() - want).abs().max()) / scale
+    bound = bf16_rel(layers)
+    log({"phase": "lm.generate", "new_tokens": LM_NEW, "wall_s": t_gen,
+         "tokens_per_s": LM_BATCH * LM_NEW / t_gen, "launches": launches,
+         "peak_mib": gen_peak, "first_token_equals_prefill_argmax":
+             torch.equal(out[:, :1], tok), "max_abs_logit": scale,
+         "decode_vs_prefill_rel": rel, "bound_rel": bound})
+    require(rel["right"] <= bound, f"decode vs prefill of s + 1 tokens: "
+            f"max abs {rel['right']} x {scale} > {bound} x {scale}")
+    require(min(rel["conv_padded"], rel["state_zeroed"]) > bound,
+            f"a wrong cache passes the decode-vs-prefill bound: {rel}")
+
+    # the scan's real inputs at the first and the last layer
+    captured, calls, real = {}, [0], ops.selective_scan
+
+    def capture(*args):
+        if calls[0] in (0, layers - 1):
+            captured[f"layer{calls[0]}"] = tuple(
+                None if t is None else t.clone() for t in args)
+        calls[0] += 1
+        return real(*args)
+
+    ops.selective_scan = capture
+    try:
+        SS.prefill(cfg, params, prompts)
+    finally:
+        ops.selective_scan = real
+    del params, leaves, engine, logits, caches, conv, h, last, dec, full
+    torch.cuda.empty_cache()
+    return launches, captured
+
+
+def _lm_cpu_equal():
+    """falcon-mamba SMOKE with the same parameters on the card and on the
+    CPU: the card's greedy tokens, and every step's logits along them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import Engine
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = lm.params_from_reference(cfg, lm.params_to_numpy(cpu), "cuda")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, 16),
+                            generator=torch.Generator().manual_seed(SEED))
+    toks = {dev: Engine(cfg, p, s_max=32).generate(prompts.to(dev), 8).cpu()
+            for dev, p in (("cuda", card), ("cpu", cpu))}
+    lg_card = _logits_along(cfg, card, prompts.cuda(), toks["cuda"].cuda())
+    lg_cpu = _logits_along(cfg, cpu, prompts, toks["cuda"])
+    err = float((lg_card.cpu() - lg_cpu).abs().max())
+    scale = float(lg_cpu.abs().max())
+    bound = bf16_rel(cfg.n_layers)
+    ok, clear = _greedy_agrees(toks["cuda"], lg_cpu, bound)
+    log({"phase": "cpu_equal.lm", "arch": cfg.name, "tokens_equal":
+         torch.equal(toks["cuda"], toks["cpu"]), "clear_steps": clear,
+         "steps": toks["cuda"].numel(), "logits_max_abs": err,
+         "max_abs_logit": scale, "logits_rel": err / scale,
+         "bound_rel": bound})
+    require(err <= bound * scale, f"SMOKE logits card vs CPU: max abs {err} "
+            f"> {bound} x {scale}")
+    require(ok, "the card's greedy tokens are not the CPU's")
+
+
 def _patched_like(plan, gen, arrivals: int = 32):
     """A seeded plan-shaped input, as the streaming patch path leaves a
     plan: ~5% of CSR prefix slots deleted; ``arrivals`` vertex slots past
@@ -1100,8 +1333,65 @@ def _minplus_section(g, part, gen, times, sssp_state) -> dict:
     return out
 
 
+def _selective_scan_section(captured, gen, times) -> dict:
+    """selective_scan against its plain loop, y and h_last within SCAN_REL
+    of their largest |value|: seeded inputs at the prefill shape (the
+    captured layers' [B, S, Di] and N; the JAX
+    kernel tests' distributions) from a zero and a random h0, S = 1 from a
+    random h0 (decode), and the lm phase's captured layer inputs; timed at
+    the prefill shape from a zero state, as prefill calls it, and at S = 1.
+    The bound counts x, dt, B, C, A and D read once and y and h_last
+    written once, and 6 float32 operations per state element and step; it
+    leaves the exps out (no published rate in the table it uses)."""
+    from repro_torch.kernels import ops, ref
+    x0, a0 = captured["layer0"][0], captured["layer0"][4]
+    (b, s, d), n, dev = x0.shape, a0.shape[1], x0.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x, bb, cc = randn(b, s, d), randn(b, s, n, scale=0.5), \
+        randn(b, s, n, scale=0.5)
+    dt = torch.nn.functional.softplus(randn(b, s, d))
+    a = torch.exp(randn(d, n, scale=0.3))
+    dsk, h0 = randn(d), randn(b, d, n)
+    cases = {"prefill": (x, dt, bb, cc, a, dsk, None),
+             "prefill_h0": (x, dt, bb, cc, a, dsk, h0),
+             "decode": (x[:, :1].contiguous(), dt[:, :1].contiguous(),
+                        bb[:, :1].contiguous(), cc[:, :1].contiguous(), a,
+                        dsk, h0), **captured}
+    err, rel = {}, {}
+    for name, args in cases.items():
+        got = ops.selective_scan(*args)
+        want = ref.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("y", "h_last"), got, want):
+            e = float((g - w).abs().max())
+            err[f"{name}.{part}"] = e
+            rel[f"{name}.{part}"] = e / float(w.abs().max())
+            require(bool(torch.isfinite(g).all()) and e <= SCAN_REL * float(
+                w.abs().max()), f"selective_scan {name} {part}: max abs {e}"
+                f" > {SCAN_REL} x {float(w.abs().max())}")
+    log({"phase": "kernels.selective_scan.check", "max_abs_err": err,
+         "max_rel_err": rel, "captured_shapes": {
+             k: list(v[0].shape) for k, v in captured.items()}})
+    prefill = cases["prefill"]
+    t = times(kernel=lambda: ops.selective_scan(*prefill))
+    t["plain_ms"] = slow_ms(lambda: ref.selective_scan_ref(*prefill))
+    t["decode_kernel_ms"] = device_ms(lambda: ops.selective_scan(
+        *cases["decode"]))
+    t["decode_plain_ms"] = device_ms(lambda: ref.selective_scan_ref(
+        *cases["decode"]))
+    t["bound_ms"], t["bound_by"] = _bound(
+        4 * (3 * b * s * d + 2 * b * s * n + d * n + d + b * d * n),
+        6 * b * s * d * n)
+    out = {"shape": [b, s, d, n], "max_abs_err": max(err.values()), **t}
+    log({"phase": "kernels.selective_scan", **out})
+    return out
+
+
 def phase_kernels(plan, launches, gnn_launches, g, owner, part,
-                  etsch_launches, sssp_state):
+                  etsch_launches, sssp_state, lm_launches, lm_inputs):
     from repro_torch.engine import kernels as Kn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1210,6 +1500,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
     lc = _lane_cumsum_section(g, owner, gen, times)
     fm = _frontier_min_section(part, gen, times)
     mp = _minplus_section(g, part, gen, times, sssp_state)
+    ss = _selective_scan_section(lm_inputs, gen, times)
 
     seg_bound, seg_by = _seg_bound(plan)
     mu_bound, mu_by = _mu_bound(plan)
@@ -1276,6 +1567,16 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
          "library_ms": mp["library_ms"], "shape": mp["shape"],
          "graph_ms": mp["graph_kernel_ms"],
          "fixpoint_ms": mp["fixpoint_kernel_ms"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:28",
+         "launches": lm_launches["selective_scan"],
+         "max_abs_err": ss["max_abs_err"],
+         "ms": ss["kernel_ms"], "plain_ms": ss["plain_ms"],
+         "bound_ms": ss["bound_ms"], "bound_by": ss["bound_by"],
+         "library_ms": None, "eager_ms": ss["kernel_eager_ms"],
+         "shape": ss["shape"], "decode_ms": ss["decode_kernel_ms"],
+         "decode_plain_ms": ss["decode_plain_ms"]},
     ]}
 
 
@@ -1329,9 +1630,13 @@ def main() -> int:
     g, owner, plan, launches, sssp_state = phase_main()
     gnn_launches = phase_gnn(g, plan)
     part, etsch_launches = phase_etsch(g, owner, plan, sssp_state)
+    lm_launches, lm_inputs = phase_lm()
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
-                                etsch_launches, sssp_state)
+                                etsch_launches, sssp_state, lm_launches,
+                                lm_inputs)
+    del lm_inputs
     phase_cpu_equal()
+    _lm_cpu_equal()
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ supersteps (SSSP, WCC, PageRank and the GNN programs), and the paper's own
 dense ETSCH framework with its partition metrics and baselines, with
 hand-written CUDA kernels (``csrc/``) for the segmented reduce, the replica
 update, gSpMM, the min-plus sweep, the frontier min and DFEP's rank
-cumsum. It imports ``torch`` and numpy and nothing of the JAX package.
+cumsum; and Mamba serving (``configs``, ``models``, ``serve``, ``launch``:
+falcon-mamba-7b prefill and greedy decode) through a hand-written
+selective-scan kernel. It imports ``torch`` and numpy and nothing of the
+JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from . import core, engine, kernels  # noqa: F401

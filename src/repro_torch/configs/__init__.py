@@ -1,0 +1,38 @@
+"""Config registry. The port carries the configurations of the
+architectures it runs; the other ids of the JAX package's registry are
+known here and raise ``NotImplementedError`` until their family is ported
+(``ROADMAP.md``, queue 1 item 15)."""
+from __future__ import annotations
+
+import importlib
+
+from .base import MlaConfig, ModelConfig, MoeConfig, SsmConfig  # noqa: F401
+
+#: Canonical external ids (``--arch <id>``) -> module name.
+ARCH_IDS = {
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen3-4b": "qwen3_4b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "granite-3-2b": "granite_3_2b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "llava-next-34b": "llava_next_34b",
+    "whisper-small": "whisper_small",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+}
+#: The modules this package ports.
+PORTED = ("falcon_mamba_7b",)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    mod_name = ARCH_IDS.get(arch, arch)
+    if mod_name not in ARCH_IDS.values():
+        raise KeyError(f"unknown architecture {arch!r}; known: "
+                       f"{', '.join(ARCH_IDS)}")
+    if mod_name not in PORTED:
+        raise NotImplementedError(
+            f"{arch}: not ported to repro_torch yet (see ROADMAP.md, queue 1 "
+            f"item 15); ported: {', '.join(PORTED)}")
+    mod = importlib.import_module(f"{__name__}.{mod_name}")
+    return mod.SMOKE if smoke else mod.CONFIG

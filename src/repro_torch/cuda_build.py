@@ -46,6 +46,7 @@ SIGNATURES = {
                                                  _P]),
     "minplus_sweep": ("minplus_sweep_f32", [_P] * 5
                       + [ctypes.c_longlong] * 2 + [ctypes.c_float, _P]),
+    "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -1,5 +1,5 @@
-"""Hopper kernels for the paper's standalone hot spots, with their plain
-PyTorch versions (``ref``).
+"""Hopper kernels for the paper's standalone hot spots and the Mamba scan,
+with their plain PyTorch versions (``ref``).
 
 ``lane_cumsum``
     Inclusive cumsum down the rows of a tall [S, K] array: DFEP's step-1
@@ -19,6 +19,13 @@ PyTorch versions (``ref``).
     directions of every edge, candidates read from the input). Replaces
     ``repro/kernels/minplus_sweep.py::minplus_sweep``.
 
+``selective_scan``
+    The Mamba-1 forward scan with an initial and a final state: every
+    layer of LM prefill and of every decode step. CUDA C++ in
+    ``csrc/selective_scan.cu`` (a thread per state element with h in a
+    register, N lanes of a warp per channel, y by a shuffle reduction).
+    Replaces ``repro/kernels/selective_scan.py::selective_scan``.
+
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; a mix raises, and there is no fallback from one to
 the other. Each launch adds one to :data:`LAUNCHES`. A dtype a kernel does
@@ -35,13 +42,17 @@ from ..cuda_build import stream as _stream
 from . import ref
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0}
+LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0,
+            "selective_scan": 0}
 
 #: Elements per lane_cumsum tile (rows per tile = this // K): a [1024, 16]
 #: int32 tile is 64 KB, one block's work.
 CUMSUM_TILE_ELEMS = 16384
 _CUMSUM_DTYPES = {torch.int32: 0, torch.float32: 1}
 _MIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: State widths the scan kernel takes (the lanes of one channel divide a
+#: warp).
+SCAN_STATES = (4, 8, 16, 32)
 
 
 def reset_launches() -> None:
@@ -128,3 +139,48 @@ def minplus_sweep(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         out.data_ptr(), v, e, float(cost), _stream())
     _launched("minplus_sweep", rc)
     return out
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   h0: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 forward scan ``h_t = exp(-dt_t ⊙ A) h_{t-1} + (dt_t x_t) ⊗
+    B_t``, ``y_t = C_t · h_t + D ⊙ x_t``: x/dt [B, S, Di], b/c [B, S, N],
+    a [Di, N], d_skip [Di], h0 [B, Di, N] or None (zero), all float32 and
+    contiguous -> (y [B, S, Di], h_last [B, Di, N]). CUDA tensors launch the
+    kernel (N in :data:`SCAN_STATES`); CPU tensors run
+    :func:`ref.selective_scan_ref`."""
+    args = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
+    for t in args:
+        _dtype_code(t, {torch.float32: 0}, "selective_scan")
+    if x.ndim != 3 or a.ndim != 2:
+        raise ValueError(f"selective_scan: expected x [B, S, Di] and a "
+                         f"[Di, N], got {tuple(x.shape)} and "
+                         f"{tuple(a.shape)}")
+    bsz, s, d_in = (int(n) for n in x.shape)
+    n = int(a.shape[1])
+    shapes = {"x": (bsz, s, d_in), "dt": (bsz, s, d_in), "b": (bsz, s, n),
+              "c": (bsz, s, n), "a": (d_in, n), "d_skip": (d_in,),
+              "h0": (bsz, d_in, n)}
+    for t, (name, shape) in zip((x, dt, b, c, a, d_skip, h0),
+                                shapes.items()):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"selective_scan: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if not _on_card(*args):
+        return ref.selective_scan_ref(x, dt, b, c, a, d_skip, h0)
+    if n not in SCAN_STATES:
+        raise ValueError(f"selective_scan: state width {n} is not one of "
+                         f"{SCAN_STATES}")
+    for t, (name, shape) in zip(args, shapes.items()):
+        _check(t, name, torch.float32, shape)
+    y = torch.empty_like(x)
+    h_last = torch.empty((bsz, d_in, n), dtype=torch.float32,
+                         device=x.device)
+    rc = cuda_build.entry("selective_scan")(
+        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
+        d_skip.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_last.data_ptr(), bsz, s, d_in, n, _stream())
+    _launched("selective_scan", rc)
+    return y, h_last

@@ -44,3 +44,30 @@ def minplus_relax(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     out.scatter_reduce_(0, d, cu, "amin")
     out.scatter_reduce_(0, s, cv, "amin")
     return out
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                       h0: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba-1 selective scan, a loop over t:
+    ``h_t = exp(-dt_t ⊙ A) h_{t-1} + (dt_t x_t) ⊗ B_t``,
+    ``y_t = C_t · h_t + D ⊙ x_t``.
+
+    Plain version of ``selective_scan``. x/dt [B, S, Di]; b/c [B, S, N];
+    a [Di, N] (positive); d_skip [Di]; h0 [B, Di, N] (zero when None), all
+    float32. Returns (y [B, S, Di], h_last [B, Di, N]).
+    """
+    bsz, s, d_in = x.shape
+    h = (torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0)
+    ys = []
+    for t in range(s):
+        dt_t, x_t = dt[:, t], x[:, t]
+        decay = torch.exp(-dt_t[:, :, None] * a[None])
+        inject = (dt_t * x_t)[:, :, None] * b[:, t, None, :]
+        h = decay * h + inject
+        ys.append(torch.sum(h * c[:, t, None, :], dim=-1)
+                  + x_t * d_skip[None])
+    y = torch.stack(ys, dim=1) if ys else torch.empty_like(x)
+    return y, h

@@ -1,0 +1,48 @@
+"""Serving launcher: seeded random weights and prompts, the batched greedy
+engine, one line per request.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --smoke --device cpu --batch 4 --prompt-len 16 --n-new 8
+
+Runs on the card unless ``--device cpu``. One device: no ``--mesh``
+(multi-device is ROADMAP queue 1 item 12), and no ``--perf`` (the JAX
+launcher's tuned settings are settings of its XLA scan and dry-run specs,
+which this path does not have).
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..configs import get_config
+from ..core.graph import resolve_device
+from ..models import lm
+from ..serve.serve_step import Engine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--n-new", type=int, default=8)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, dev)
+    engine = Engine(cfg, params, s_max=args.prompt_len + args.n_new + 8)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=dev)
+    out = engine.generate(prompts, n_new=args.n_new)
+    for i in range(args.batch):
+        print(f"req {i}: {out[i].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -169,7 +169,10 @@ def test_package_imports_no_jax_and_no_reference():
                 "repro_torch.engine.runtime", "repro_torch.engine.programs",
                 "repro_torch.cuda_build", "repro_torch.kernels.ops",
                 "repro_torch.core.etsch", "repro_torch.core.algorithms",
-                "repro_torch.core.metrics", "repro_torch.core.baselines"):
+                "repro_torch.core.metrics", "repro_torch.core.baselines",
+                "repro_torch.configs", "repro_torch.models.ssm",
+                "repro_torch.models.lm", "repro_torch.serve.serve_step",
+                "repro_torch.launch.serve"):
         assert mod in seen["mods"]
 
 

@@ -76,7 +76,11 @@ non-zero with no "ok" line):
               weights; masked_update scalar and at the GNN state's F=8);
               lane_cumsum on DFEP's [2·e_pad, 16] and [V, 16] 0/1 arrays
               (int32, exact) and a float32 case, frontier_min on [16, V]
-              with the real member mask, minplus_sweep on ETSCH's flat
+              with the real member mask and at multi-source SSSP's
+              [16, N_SOURCES·V] (both timed; each of the two kernels'
+              timing graphs is replayed once more on a changed input and
+              held exact against the plain version, which catches look-back
+              flags that were not reset), minplus_sweep on ETSCH's flat
               [K·V] state and on the whole graph at costs 1 and 0 (both
               exact); then timed: device time from CUDA-graph replays
               (``ms``, ``plain_ms``, ``library_ms``) and eager back-to-back
@@ -227,11 +231,14 @@ def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
+def device_ms(fn, iters: int = 20, replays: int = 5, check=None) -> float:
     """Mean device time of one ``fn`` call in ms: ``iters`` calls captured
     in a CUDA graph, replayed ``replays`` times between CUDA events, so no
     host launch cost is in the number. ``fn`` is warmed first (lazy
-    library loads, memoised plan indices) on a side stream."""
+    library loads, memoised plan indices) on a side stream. With ``check``,
+    after the timing replays ``check(replay, out)`` is called with the
+    graph's replay and the output of its last ``fn`` call, to hold one more
+    replay against the plain version."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -242,7 +249,7 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -252,6 +259,8 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    if check is not None:
+        check(graph.replay, out)
     return start.elapsed_time(end) / (iters * replays)
 
 
@@ -1196,11 +1205,26 @@ def _dfep_rank_inputs(g, owner):
     return elig[slots.edge].contiguous(), (pres > 0).to(torch.int32)
 
 
+def _replay_check(name: str, static_in, other, plain):
+    """A device_ms ``check``: copy ``other`` into the graph's input
+    ``static_in``, replay once more, and require the last call's output to
+    equal ``plain(static_in)``. A new input makes look-back flags left over
+    from the replays before show."""
+    def check(replay, out):
+        static_in.copy_(other)
+        replay()
+        torch.cuda.synchronize()
+        require(torch.equal(out, plain(static_in)), f"{name} differs from "
+                "the plain version after a graph replay")
+    return check
+
+
 def _lane_cumsum_section(g, owner, gen, times) -> dict:
     """lane_cumsum on DFEP's rank inputs (int32, exact against the plain
     version and the flat scan) and on float32 values in [0, 1) (within
     FLOAT_CUMSUM_RTOL of a float64 cumsum); timed on the [2·e_pad, K]
-    input."""
+    input, each timing graph replayed once more on the input shifted by a
+    row and held against the plain version."""
     from repro_torch.kernels import ops, ref
     x_slot, x_pres = _dfep_rank_inputs(g, owner)
     shapes, err = {}, 0.0
@@ -1223,24 +1247,54 @@ def _lane_cumsum_section(g, owner, gen, times) -> dict:
             f"{rel_f} > {FLOAT_CUMSUM_RTOL}")
     del xf, gotf, wantf
     s, k = x_slot.shape
-    t = times(kernel=lambda: ops.lane_cumsum(x_slot),
-              flat_scan=lambda: _flat_scan_cumsum(x_slot))
-    t["presence_kernel_ms"] = device_ms(lambda: ops.lane_cumsum(x_pres))
+    static = {"slots": x_slot.clone(), "presence": x_pres.clone()}
+    checks = {n: _replay_check(f"lane_cumsum {n}", x, torch.roll(x, 1, 0),
+                               ref.cumsum_lanes) for n, x in static.items()}
+    t = times(kernel=lambda: ops.lane_cumsum(static["slots"]),
+              flat_scan=lambda: _flat_scan_cumsum(x_slot),
+              check=checks["slots"])
+    t["presence_kernel_ms"] = device_ms(
+        lambda: ops.lane_cumsum(static["presence"]),
+        check=checks["presence"])
     # torch.cumsum down dim 0 runs K serial scans (~0.7 s a call here)
     t["plain_ms"] = slow_ms(lambda: ref.cumsum_lanes(x_slot))
     t["library_ms"] = slow_ms(lambda: torch.cumsum(x_slot, 0))
     t["bound_ms"], t["bound_by"] = _bound(8 * s * k, s * k)
-    out = {"shapes": shapes, "max_abs_err": err,
+    out = {"shapes": shapes, "max_abs_err": err, "graph_replay_exact": True,
            "float32_max_rel_vs_f64": rel_f,
            "plain_float32_max_rel_vs_f64": plain_rel_f, **t}
     log({"phase": "kernels.lane_cumsum", **out})
     return out
 
 
+def _frontier_min_timing(state, member, times, name: str) -> dict:
+    """Device and eager ms of frontier_min, its plain version and
+    ``torch.amin`` of the pre-masked state, the timing graph replayed once
+    more on the state reversed along V and held against the plain version;
+    with the bound: the member mask read, the state read where a member
+    needs it (the kernel skips the rest) and the output written."""
+    from repro_torch.kernels import ops, ref
+    k, v = state.shape
+    static = state.clone()
+    masked = torch.where(member, state, float("inf"))
+    t = times(kernel=lambda: ops.frontier_min(static, member),
+              plain=lambda: ref.kreduce_min(state, member),
+              library=lambda: torch.amin(masked, 0),
+              check=_replay_check(f"frontier_min {name}", static,
+                                  state.flip(1),
+                                  lambda st: ref.kreduce_min(st, member)))
+    members = int(member.sum())
+    t["bound_ms"], t["bound_by"] = _bound(k * v + 4 * members + 4 * v,
+                                          members)
+    return t
+
+
 def _frontier_min_section(part, gen, times) -> dict:
     """frontier_min on a [K, V] state with ~20% +inf, the real member mask,
     and the same with vertex 0 in no partition; float32 and bfloat16;
-    exact against the plain version."""
+    exact against the plain version. Timed there and at multi-source
+    SSSP's [K, N_SOURCES·V] with its member mask (each row's mask repeated
+    per source), which is checked exact too."""
     from repro_torch.kernels import ops, ref
     dev = part.device
     k, v = part.k, part.n_vertices
@@ -1261,16 +1315,17 @@ def _frontier_min_section(part, gen, times) -> dict:
                     f"frontier_min {name} {dtype} is not exact")
     require(bool(torch.isinf(ops.frontier_min(state, lonely)[0])),
             "frontier_min: a column with no member is not +inf")
-    masked = torch.where(part.member, state, float("inf"))
-    t = times(kernel=lambda: ops.frontier_min(state, part.member),
-              plain=lambda: ref.kreduce_min(state, part.member),
-              library=lambda: torch.amin(masked, 0))
-    # the state is read only where member: a non-member entry is never
-    # needed (the kernel skips its load)
-    members = int(part.member.sum())
-    t["bound_ms"], t["bound_by"] = _bound(k * v + 4 * members + 4 * v,
-                                          members)
-    out = {"shape": [k, v], "max_abs_err": err, **t}
+    t = _frontier_min_timing(state, part.member, times, "[K, V]")
+    member_sv = (part.member[:, None, :].expand(k, N_SOURCES, v)
+                 .reshape(k, N_SOURCES * v))
+    state_sv = torch.rand((k, N_SOURCES * v), generator=gen, device=dev) * 30
+    state_sv = torch.where(member_sv, state_sv, float("inf"))
+    got = ops.frontier_min(state_sv, member_sv)
+    require(torch.equal(got, ref.kreduce_min(state_sv, member_sv)),
+            "frontier_min at the multi-source shape is not exact")
+    t_sv = _frontier_min_timing(state_sv, member_sv, times, "[K, S·V]")
+    out = {"shape": [k, v], "max_abs_err": err, "graph_replay_exact": True,
+           **t, "multi_source": {"shape": [k, N_SOURCES * v], **t_sv}}
     log({"phase": "kernels.frontier_min", **out})
     return out
 
@@ -1474,9 +1529,12 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
               for c, m in (("min", dist), ("add", finite))}
     ident = {c: torch.full((plan.k * plan.v_max,), Kn._IDENTITY[c],
                            device=dev) for c in masked}
-    def times(iters: int = 20, **fns):
-        """Device ms (CUDA graph) and eager ms (with host launch cost)."""
-        out = {f"{k}_ms": device_ms(f, iters=iters) for k, f in fns.items()}
+    def times(iters: int = 20, check=None, **fns):
+        """Device ms (CUDA graph) and eager ms (with host launch cost);
+        ``check`` goes to the kernel's device_ms."""
+        out = {f"{k}_ms": device_ms(f, iters=iters,
+                                    check=check if k == "kernel" else None)
+               for k, f in fns.items()}
         out.update({f"{k}_eager_ms": eager_ms(f) for k, f in fns.items()})
         return out
 
@@ -1556,7 +1614,10 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
          "max_abs_err": fm["max_abs_err"],
          "ms": fm["kernel_ms"], "plain_ms": fm["plain_ms"],
          "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
-         "library_ms": fm["library_ms"], "shape": fm["shape"]},
+         "library_ms": fm["library_ms"], "shape": fm["shape"],
+         "multi_source": {key: fm["multi_source"][key] for key in (
+             "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")}},
         {"name": "minplus_sweep", "route": "cuda",
          "source": "src/repro_torch/csrc/minplus_sweep.cu",
          "replaces": "src/repro/kernels/minplus_sweep.py:28",

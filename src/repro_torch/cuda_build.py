@@ -43,10 +43,18 @@ SIGNATURES = {
     "lane_cumsum": ("lane_cumsum", [_P] * 3 + [ctypes.c_longlong]
                     + [_I] * 3 + [_P]),
     "frontier_min": ("frontier_min", [_P] * 3 + [_I, ctypes.c_longlong, _I,
-                                                 _P]),
+                                                 _I, _P]),
     "minplus_sweep": ("minplus_sweep_f32", [_P] * 5
                       + [ctypes.c_longlong] * 2 + [ctypes.c_float, _P]),
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
+}
+#: Layout queries a library exports beside its entry point, so that the
+#: kernel's source alone decides its tiles: symbol -> (library, argtypes),
+#: each returning a long long (-1 for arguments the kernel refuses).
+QUERIES = {
+    "lane_cumsum_tile_rows": ("lane_cumsum", [_I, _I]),
+    "lane_cumsum_scratch_words": ("lane_cumsum",
+                                  [ctypes.c_longlong, _I, _I]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}
@@ -141,16 +149,27 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def entry(name: str):
-    """The C entry point of library ``name``, built and loaded on first
-    use, with its argtypes and an int restype (the CUDA error code)."""
+def _load(library: str, symbol: str, argtypes, restype):
+    """``symbol`` of library ``library``, built and loaded on first use."""
     with _LOCK:
-        fn = _LOADED.get(name)
+        fn = _LOADED.get(symbol)
         if fn is None:
-            build((name,))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            build((library,))
+            fn = getattr(ctypes.CDLL(str(library_path(library))), symbol)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LOADED[name] = fn
+            fn.restype = restype
+            _LOADED[symbol] = fn
         return fn
+
+
+def entry(name: str):
+    """The C entry point of library ``name``, with its argtypes and an int
+    restype (the CUDA error code)."""
+    symbol, argtypes = SIGNATURES[name]
+    return _load(name, symbol, argtypes, ctypes.c_int)
+
+
+def query(symbol: str):
+    """A layout query of :data:`QUERIES`, returning a long long."""
+    library, argtypes = QUERIES[symbol]
+    return _load(library, symbol, argtypes, ctypes.c_longlong)

@@ -3,14 +3,23 @@ with their plain PyTorch versions (``ref``).
 
 ``lane_cumsum``
     Inclusive cumsum down the rows of a tall [S, K] array: DFEP's step-1
-    rank cumsum. CUDA C++ in ``csrc/lane_cumsum.cu`` (tile totals, a scan
-    of the totals per column, a local scan plus carry). Replaces
+    rank cumsum. CUDA C++ in ``csrc/lane_cumsum.cu``: one pass with
+    decoupled look-back (each block scans a tile of rows held in registers
+    from 16-byte loads, publishes its per-column aggregate, sums its
+    predecessors' up to the nearest inclusive prefix, and writes), so the
+    input is read once. :func:`cumsum_vec` picks the load width; the
+    kernel's source gives the size of the zeroed status scratch
+    (``lane_cumsum_scratch_words``). Replaces
     ``repro/kernels/lane_cumsum.py::lane_cumsum``.
 
 ``frontier_min``
     ETSCH aggregation: the masked min over the partition axis of a [K, V]
-    state. CUDA C++ in ``csrc/frontier_min.cu`` (one thread per vertex
-    column). Replaces ``repro/kernels/frontier_min.py::frontier_min``.
+    state. CUDA C++ in ``csrc/frontier_min.cu``: a thread owns VEC
+    consecutive vertex columns (:func:`frontier_min_vec` picks 4 in
+    float32, 8 in bfloat16, or 1 from V and the pointers' alignment),
+    loads 16 rows of mask words at once, then the state vectors those rows
+    need in 16-byte loads, 8 rows at a time, then compares.
+    Replaces ``repro/kernels/frontier_min.py::frontier_min``.
 
 ``minplus_sweep``
     One undirected min-plus relaxation sweep over an edge list: the ETSCH
@@ -45,9 +54,8 @@ from . import ref
 LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0,
             "selective_scan": 0}
 
-#: Elements per lane_cumsum tile (rows per tile = this // K): a [1024, 16]
-#: int32 tile is 64 KB, one block's work.
-CUMSUM_TILE_ELEMS = 16384
+#: Vertex columns a frontier_min thread may own, widest first.
+MIN_VEC_WIDTHS = (8, 4, 1)
 _CUMSUM_DTYPES = {torch.int32: 0, torch.float32: 1}
 _MIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: State widths the scan kernel takes (the lanes of one channel divide a
@@ -73,6 +81,28 @@ def _launched(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
+def cumsum_vec(k: int, x_ptr: int, out_ptr: int) -> int:
+    """Columns a lane_cumsum thread loads at once from an [S, k] array at
+    ``x_ptr`` into one at ``out_ptr``: 4 (one 16-byte load) when k % 4 == 0
+    and both pointers are 16-byte aligned, else 1."""
+    return 4 if k % 4 == 0 and x_ptr % 16 == 0 and out_ptr % 16 == 0 else 1
+
+
+def frontier_min_vec(v: int, elem_bytes: int, state_ptr: int,
+                     member_ptr: int, out_ptr: int) -> int:
+    """Vertex columns a frontier_min thread owns: the widest of
+    MIN_VEC_WIDTHS whose state load is at most 16 bytes (4 in float32, 8
+    in bfloat16), that divides ``v``, and whose loads the pointers allow
+    (state and out aligned to ``width · elem_bytes``, member to
+    ``width``); 1 always fits."""
+    for w in MIN_VEC_WIDTHS:
+        size = w * elem_bytes
+        if size <= 16 and v % w == 0 and state_ptr % size == 0 \
+                and out_ptr % size == 0 and member_ptr % w == 0:
+            return w
+    return 1
+
+
 def lane_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along axis 0 of x [S, K] (int32 or float32), in x's
     dtype. CUDA tensors launch the kernel; CPU tensors run
@@ -88,11 +118,14 @@ def lane_cumsum(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if s == 0 or k == 0:
         return out
-    rows = max(1, CUMSUM_TILE_ELEMS // k)
-    scratch = torch.empty(-(-s // rows) * k, dtype=x.dtype, device=x.device)
+    vec = cumsum_vec(k, x.data_ptr(), out.data_ptr())
+    words = cuda_build.query("lane_cumsum_scratch_words")(s, k, vec)
+    # zeroed on every call (one memset on the stream): the tile counter and
+    # the look-back's status flags start clean, in a CUDA graph replay too
+    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
     rc = cuda_build.entry("lane_cumsum")(x.data_ptr(), out.data_ptr(),
-                                         scratch.data_ptr(), s, k, rows,
-                                         code, _stream())
+                                         scratch.data_ptr(), s, k, vec, code,
+                                         _stream())
     _launched("lane_cumsum", rc)
     return out
 
@@ -112,8 +145,10 @@ def frontier_min(state: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
     _check(state, "state", state.dtype, (k, v))
     _check(member, "member", torch.bool, (k, v))
     out = torch.empty(v, dtype=state.dtype, device=state.device)
+    vec = frontier_min_vec(v, state.element_size(), state.data_ptr(),
+                           member.data_ptr(), out.data_ptr())
     rc = cuda_build.entry("frontier_min")(state.data_ptr(), member.data_ptr(),
-                                          out.data_ptr(), k, v, code,
+                                          out.data_ptr(), k, v, code, vec,
                                           _stream())
     _launched("frontier_min", rc)
     return out

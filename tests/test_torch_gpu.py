@@ -290,6 +290,209 @@ def test_frontier_min_matches_plain_on_card():
             assert torch.isinf(got[0]).item()
 
 
+def _cumsum_tile(k: int) -> int:
+    """lane_cumsum's tile height for an aligned [S, k] array."""
+    from repro_torch import cuda_build
+    from repro_torch.kernels import ops as TO
+    return cuda_build.query("lane_cumsum_tile_rows")(k, TO.cumsum_vec(k, 0,
+                                                                      0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,k,vec,rows,words", [
+    # DFEP's [2·e_pad, 16] at dblp 1.0: 4 columns a load, 1,024-row tiles
+    (1_902_592, 16, 4, 1024, 1 + 1858 * 16),
+    (317_080, 16, 4, 1024, 1 + 310 * 16),
+    # one column a load: 16 row groups
+    (1_902_592, 16, 1, 256, 1 + 7432 * 16),
+    (1, 16, 4, 1024, 1 + 16),
+    (0, 16, 4, 1024, 1),
+    (5, 1, 1, 4096, 1 + 1),
+    (4096, 4, 4, 4096, 1 + 4),
+    (4097, 33, 1, 112, 1 + 37 * 33),      # 7 row groups of 33 columns
+    (300, 300, 4, 48, 1 + 7 * 300),       # 75 column vectors
+    (300, 301, 1, 16, 1 + 19 * 301),      # wider than a block: 2 slabs
+])
+def test_lane_cumsum_layout_on_card(s, k, vec, rows, words):
+    """The kernel's own tile height and scratch size (tile counter + a
+    status word per row tile and column); -1 for a layout it refuses."""
+    from repro_torch import cuda_build
+    _card()
+    assert cuda_build.query("lane_cumsum_tile_rows")(k, vec) == rows
+    assert cuda_build.query("lane_cumsum_scratch_words")(s, k, vec) == words
+    assert words == 1 + -(-s // rows) * k
+    assert cuda_build.query("lane_cumsum_tile_rows")(k, 3) == -1
+    assert cuda_build.query("lane_cumsum_scratch_words")(s, 0, vec) == -1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 16, 33, 300])
+@pytest.mark.parametrize("where", ["tile-1", "tile", "tile+1", "two tiles"])
+def test_lane_cumsum_tile_edges_on_card(k, where):
+    """S at one tile, one tile ± 1 and exactly two tiles, int32 and float32
+    small integers, exact; and the same on a view 4 bytes into its storage
+    (one column a load)."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    rows = _cumsum_tile(k)
+    s = {"tile-1": rows - 1, "tile": rows, "tile+1": rows + 1,
+         "two tiles": 2 * rows}[where]
+    rng = np.random.default_rng(s * 7 + k)
+    x = torch.from_numpy(rng.integers(-5, 10, (s, k)).astype(np.int32))
+    for xs in (x, x.float()):
+        got = TO.lane_cumsum(xs.to(dev))
+        assert torch.equal(got.cpu(), TO.lane_cumsum(xs)), (s, k, xs.dtype)
+        odd = torch.empty(s * k + 1, dtype=xs.dtype, device=dev)[1:]
+        odd = odd.view(s, k)
+        odd.copy_(xs)
+        assert TO.cumsum_vec(k, odd.data_ptr(), 0) == 1
+        assert torch.equal(TO.lane_cumsum(odd).cpu(), TO.lane_cumsum(xs))
+
+
+@pytest.mark.gpu
+def test_lane_cumsum_long_lookback_on_card():
+    """2,000,000 × 16 rows: the look-back crosses ~2,000 tiles. int32
+    exact, three calls in a row on the same input; float32 in [0, 1) within
+    1e-4 of the float64 running sum (float32 rounding, another order)."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    s, k = 2_000_000, 16
+    assert -(-s // _cumsum_tile(k)) > 1000
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-5, 10, (s, k)).astype(np.int32))
+    want = TO.lane_cumsum(x)
+    xd = x.to(dev)
+    for _ in range(3):
+        assert torch.equal(TO.lane_cumsum(xd).cpu(), want)
+    xf = torch.from_numpy(rng.random((s, k)).astype(np.float32))
+    wantf = torch.cumsum(xf.double(), 0)
+    got = TO.lane_cumsum(xf.to(dev)).cpu().double()
+    assert float(((got - wantf).abs() / wantf.clamp(min=1.0)).max()) < 1e-4
+
+
+def _replays_equal(fn, static_in, inputs, plain) -> None:
+    """Capture ``out = fn(static_in)`` in a CUDA graph, then for each of
+    ``inputs``: copy it into ``static_in``, replay, and require ``out`` to
+    equal ``plain`` of it (NaN where it has NaN). A fresh input each replay
+    makes stale look-back flags from the replay before show."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(static_in)                       # build and load before capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(static_in)
+    for x in inputs:
+        static_in.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same(out.cpu(), plain(x.cpu()))
+
+
+def _assert_same(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal, NaN matching NaN."""
+    nan = torch.isnan(want) if want.is_floating_point() else None
+    if nan is None:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.gpu
+def test_lane_cumsum_graph_replays_on_card():
+    """One call captured in a CUDA graph and replayed three times on three
+    inputs: the static output equals the plain version after each replay
+    (the tile counter and status words are zeroed inside the graph)."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.integers(-5, 10, (70_001, 16))
+                           .astype(np.int32)) for _ in range(3)]
+    _replays_equal(TO.lane_cumsum, xs[0].to(dev).clone(), xs,
+                   TO.lane_cumsum)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 16, 17, 40])
+@pytest.mark.parametrize("v", [4096, 4097, 4099, 4100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_frontier_min_widths_on_card(k, v, dtype):
+    """V % 8 in {0, 1, 3, 4} (4 columns a thread in float32 and 8 in
+    bfloat16, 1, 1, and 4), K = 1, 16, 17 and 40; +inf and NaN in member
+    and non-member slots, a column with no member: exact against the plain
+    version (NaN where it has NaN)."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(k * 10_000 + v)
+    state = torch.rand((k, v), generator=gen) * 100 - 20
+    state = torch.where(torch.rand((k, v), generator=gen) < 0.1,
+                        float("inf"), state)
+    member = torch.rand((k, v), generator=gen) < 0.2
+    member[:, 0] = False                           # no member: +inf
+    member[0, 1] = True
+    state[0, 1] = float("nan")                     # member NaN: NaN
+    member[:, 2] = False
+    member[k - 1, 2] = True
+    state[0, 2] = float("nan")                     # non-member NaN: ignored
+    state[k - 1, 2] = 3.0
+    st = state.to(tdt)
+    sd, md = st.to(dev), member.to(dev)
+    out_ptr = torch.empty(v, dtype=tdt, device=dev).data_ptr()
+    assert TO.frontier_min_vec(v, st.element_size(), sd.data_ptr(),
+                               md.data_ptr(), out_ptr) == \
+        {0: 16 // st.element_size(), 1: 1, 3: 1, 4: 4}[v % 8]
+    got = TO.frontier_min(sd, md).cpu()
+    want = TO.frontier_min(st, member)
+    _assert_same(got, want)
+    assert torch.isinf(got[0]) and torch.isnan(got[1]) and got[2] == 3.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_frontier_min_misaligned_views_on_card(dtype):
+    """A contiguous state view one element into its storage and a member
+    view 3 bytes into its storage pass the wrapper's checks, run with one
+    column a thread, and are exact."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    tdt = getattr(torch, dtype)
+    k, v = 16, 4096
+    gen = torch.Generator().manual_seed(9)
+    state = (torch.rand((k, v), generator=gen) * 50).to(tdt)
+    member = torch.rand((k, v), generator=gen) < 0.2
+    st = torch.empty(k * v + 1, dtype=tdt, device=dev)[1:].view(k, v)
+    st.copy_(state)
+    mb = torch.empty(k * v + 3, dtype=torch.bool, device=dev)[3:].view(k, v)
+    mb.copy_(member)
+    sd, md = state.to(dev), member.to(dev)
+    want = TO.frontier_min(state, member)
+    for s_arg, m_arg in ((st, md), (sd, mb), (st, mb)):
+        widest = 16 // st.element_size()
+        assert TO.frontier_min_vec(v, st.element_size(), s_arg.data_ptr(),
+                                   m_arg.data_ptr(), 0) < widest
+        _assert_same(TO.frontier_min(s_arg, m_arg).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_frontier_min_graph_replays_on_card():
+    """One call captured in a CUDA graph, replayed on three states: the
+    static output equals the plain version after each replay."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    gen = torch.Generator().manual_seed(10)
+    k, v = 16, 50_000
+    member = torch.rand((k, v), generator=gen) < 0.2
+    md = member.to(dev)
+    states = [torch.rand((k, v), generator=gen) * 30 for _ in range(3)]
+    _replays_equal(lambda s: TO.frontier_min(s, md),
+                   states[0].to(dev).clone(), states,
+                   lambda s: TO.frontier_min(s, member))
+
+
 @pytest.mark.gpu
 def test_minplus_sweep_matches_plain_on_card():
     """Bit-identical to the plain version, with +inf and negative

@@ -46,6 +46,24 @@ def test_lane_cumsum_matches_pallas(s, k, dtype):
                                   got.numpy())
 
 
+@pytest.mark.parametrize("k,x_ptr,want", [
+    (16, 0, 4),                 # DFEP's rank inputs: one 16-byte load
+    (16, 256, 4),
+    (16, 4, 1),                 # a view 4 bytes into its storage
+    (16, 8, 1),
+    (1, 0, 1),
+    (4, 0, 4),
+    (33, 0, 1),
+    (300, 0, 4),
+    (301, 0, 1),
+])
+def test_cumsum_vec(k, x_ptr, want):
+    """The host's choice for a lane_cumsum launch: the columns a thread
+    loads at once (the kernel's source sizes the tiles and the scratch)."""
+    assert TO.cumsum_vec(k, x_ptr, 0) == want
+    assert TO.cumsum_vec(k, x_ptr, 8) == 1                # out misaligned
+
+
 def test_lane_cumsum_rejects_other_dtypes():
     with pytest.raises(ValueError, match="int64"):
         TO.lane_cumsum(torch.zeros((4, 2), dtype=torch.int64))
@@ -77,6 +95,46 @@ def test_frontier_min_matches_pallas(k, v, dtype):
     np.testing.assert_array_equal(
         want, np.asarray(RR.kreduce_min(js, jnp.asarray(member)), np.float32))
     assert np.isinf(got[-1].float().item())
+
+
+@pytest.mark.parametrize("v,elem,ptrs,want", [
+    (317_080, 4, (0, 0, 0), 4),            # dblp's [16, V] ETSCH state
+    (8 * 317_080, 4, (0, 0, 0), 4),        # multi-source SSSP's [16, S·V]
+    (4100, 4, (0, 0, 0), 4),
+    (4099, 4, (0, 0, 0), 1),
+    (4097, 4, (0, 0, 0), 1),
+    (4096, 2, (0, 0, 0), 8),               # bfloat16: 16-byte state loads
+    (317_080, 2, (0, 0, 0), 8),
+    (4100, 2, (0, 0, 0), 4),
+    (4096, 4, (4, 0, 0), 1),               # state view 4 bytes in
+    (4096, 4, (8, 0, 0), 1),
+    (4096, 2, (8, 0, 0), 4),               # bf16 state 8 bytes in
+    (4096, 2, (0, 4, 0), 4),               # member 4 bytes in
+    (4096, 4, (0, 3, 0), 1),
+    (4096, 2, (0, 0, 16), 8),
+])
+def test_frontier_min_vec(v, elem, ptrs, want):
+    """The vertex columns a frontier_min thread owns: the widest that
+    divides V and that the state, member and out pointers allow."""
+    assert TO.frontier_min_vec(v, elem, *ptrs) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_frontier_min_nan_matches_pallas(dtype):
+    """A NaN in a member slot gives NaN, one in a non-member slot is
+    ignored, as in the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    state = (rng.random((5, 64)) * 100).astype(np.float32)
+    member = rng.random((5, 64)) < 0.5
+    member[:, :3] = [True, False, False]
+    state[0, 0] = state[1, 1] = np.nan       # member / non-member slot
+    tdt = getattr(torch, dtype)
+    got = TO.frontier_min(torch.from_numpy(state).to(tdt),
+                          torch.from_numpy(member)).float().numpy()
+    pallas = RO.frontier_min(jnp.asarray(state).astype(getattr(jnp, dtype)),
+                             jnp.asarray(member), block_v=128)
+    np.testing.assert_array_equal(got, np.asarray(pallas, np.float32))
+    assert np.isnan(got[0]) and not np.isnan(got[1]) and np.isinf(got[2])
 
 
 def test_frontier_min_all_masked_is_inf():

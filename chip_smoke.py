@@ -52,7 +52,9 @@ non-zero with no "ok" line):
               comparison: hash, random, greedy and JaBeJa partitions
               through ``metrics.evaluate``. The counters are zeroed before
               it; minplus_sweep and frontier_min must rise in
-              ``etsch_sssp`` and minplus_sweep in ``evaluate``.
+              ``etsch_sssp`` and minplus_sweep in ``evaluate``; each
+              problem's line logs its minplus_sweep launches by state
+              rows ([K·V], [K·8·V], [V]).
 5. lm       — Mamba serving at falcon-mamba-7b's full width and depth
               (64 layers, d_model 4096, d_inner 8192, d_state 16, vocab
               65,024): ``lm.init_params`` on the card from a seeded
@@ -81,8 +83,11 @@ non-zero with no "ok" line):
               timing graphs is replayed once more on a changed input and
               held exact against the plain version, which catches look-back
               flags that were not reset), minplus_sweep on ETSCH's flat
-              [K·V] state and on the whole graph at costs 1 and 0 (both
-              exact); then timed: device time from CUDA-graph replays
+              [K·V] state, the whole graph, multi-source SSSP's [K·8·V]
+              state and usroads' flat state at costs 1 and 0, with and
+              without a prebuilt layout (all exact; each timed, its timing
+              graph replayed once more and held exact; the layouts' build
+              time logged); then timed: device time from CUDA-graph replays
               (``ms``, ``plain_ms``, ``library_ms``) and eager back-to-back
               calls with their host launch cost (``*_eager_ms``), gspmm
               also with only its largest hub run live and with no live slot
@@ -91,7 +96,8 @@ non-zero with no "ok" line):
               its plain loop (y and h_last within SCAN_REL) on seeded
               inputs at the prefill shape with a zero and a random h0, at
               S = 1, and on the lm phase's captured layer inputs, and timed
-              at the prefill shape.
+              at the prefill shape and at S = 1, each beside its bound
+              (bytes, float32 operations, and exps at the SFUs' rate).
 7. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
@@ -619,7 +625,15 @@ def phase_gnn(g, plan):
 
 
 def _delta(before: dict, after: dict) -> dict:
-    return {k: after[k] - before[k] for k in after}
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _minplus_rows_since(before: dict) -> dict:
+    """minplus_sweep launches by state rows since ``before`` (a copy of
+    ``ops.MINPLUS_LAUNCHES_BY_ROWS``), as a loggable dict."""
+    from repro_torch.kernels import ops
+    got = _delta(before, ops.MINPLUS_LAUNCHES_BY_ROWS)
+    return {str(rows): n for rows, n in sorted(got.items()) if n}
 
 
 def _road_gain():
@@ -653,6 +667,7 @@ def _road_gain():
     require(m.gain == 1.0 - res.supersteps / (ecc + 1),
             f"usroads gain {m.gain} != 1 - {res.supersteps} / ({ecc} + 1)")
     require(m.gain > 0, f"usroads gain {m.gain} is not > 0")
+    return part
 
 
 def phase_etsch(g, owner, plan, engine_sssp_state):
@@ -687,8 +702,10 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
     for name, run in problems.items():
         torch.cuda.reset_peak_memory_stats()
         before = dict(ops.LAUNCHES)
+        before_rows = dict(ops.MINPLUS_LAUNCHES_BY_ROWS)
         r, t = wall(run)
         got = _delta(before, ops.LAUNCHES)
+        by_rows = _minplus_rows_since(before_rows)
         results[name] = r
         _, t_warm = wall(run)
         # sweeps of the local phase: counted by run_etsch for SSSP/CC, one
@@ -699,7 +716,8 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
                   else r.supersteps)
         log({"phase": f"etsch.{name}", "wall_s": t, "warm_wall_s": t_warm,
              "supersteps": r.supersteps, "local_sweeps": sweeps,
-             "launches": got, "peak_mib": peak_mib()})
+             "launches": got, "minplus_by_rows": by_rows,
+             "peak_mib": peak_mib()})
         if name == "sssp":
             for k in ETSCH_KERNELS:
                 require(got[k] > 0, f"etsch_sssp did not launch {k}")
@@ -742,12 +760,15 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
     # are the source's eccentricity + 1 (the last round changes nothing);
     # it is held to that formula with scipy's eccentricity.
     before = dict(ops.LAUNCHES)
+    before_rows = dict(ops.MINPLUS_LAUNCHES_BY_ROWS)
     m, t = wall(lambda: metrics.evaluate(g, owner, K, part=part))
     got = _delta(before, ops.LAUNCHES)
+    by_rows = _minplus_rows_since(before_rows)
     ecc = int(dist0.max())
     steps = results["sssp"].supersteps
     log({"phase": "etsch.evaluate", "partitioner": "dfep", "wall_s": t,
-         **m.row(), "eccentricity_of_0": ecc, "launches": got})
+         **m.row(), "eccentricity_of_0": ecc, "launches": got,
+         "minplus_by_rows": by_rows})
     require(got["minplus_sweep"] > 0, "evaluate did not launch minplus_sweep")
     require(m.messages == plan.exchange_volume, f"MESSAGES {m.messages} != "
             f"the plan's exchange volume {plan.exchange_volume}")
@@ -755,7 +776,7 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
             "replication factor differs from the plan's")
     require(m.gain == 1.0 - steps / (ecc + 1), f"gain {m.gain} != 1 - "
             f"{steps} / ({ecc} + 1)")
-    _road_gain()
+    road_part = _road_gain()
 
     baselines = {
         "hash": lambda: B.hash_partition(g, K),
@@ -775,11 +796,12 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
     for name in ETSCH_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the etsch path")
+    launches["minplus_by_rows"] = _minplus_rows_since({})
     log({"phase": "etsch.summary", "launches": launches,
          "fig7": {p: {k: r[k] for k in ("largest_norm", "nstdev", "messages",
                                          "connected_frac", "gain")}
                   for p, r in fig7.items()}})
-    return part, launches
+    return part, road_part, launches
 
 
 def _leaves(tree):
@@ -1330,13 +1352,29 @@ def _frontier_min_section(part, gen, times) -> dict:
     return out
 
 
-def _minplus_section(g, part, gen, times, sssp_state) -> dict:
-    """minplus_sweep on ETSCH's flat [K·V] state over its K·e_max edges and
-    on a [V] state over the graph's edges, costs 1 and 0, ~5% of the live
-    edges masked out and ~20% of the values +inf; exact against the plain
-    version. Timed on the ETSCH sweep at cost 1, and also on SSSP's fixed
-    point (``sssp_state`` on every member), where no candidate wins and the
-    kernel issues no atomic: the difference is the atomics' share."""
+def _minplus_bound(mask: torch.Tensor, rows: int,
+                   replicas: int = 1) -> tuple[float, str]:
+    """minplus_sweep's bound: the state read and written once, every mask
+    byte and each live edge's two endpoints (int32) read once (the
+    replicas share one edge list), and two candidates per live edge and
+    replica."""
+    live = int(mask.sum())
+    return _bound(8 * rows + int(mask.numel()) + 8 * live,
+                  2 * live * replicas)
+
+
+def _minplus_section(g, part, road_part, gen, times, sssp_state) -> dict:
+    """minplus_sweep at its four shapes: ETSCH's flat [K·V] state over its
+    K·e_max edge slots (the table's), the whole graph's [V], multi-source
+    SSSP's [K·N_SOURCES·V] under the flat layout with N_SOURCES replicas,
+    and usroads' flat [K·V]; costs 1 and 0, ~5% of the live edges masked
+    out, ~20% of the values +inf; exact against the plain version with the
+    memoised layout and, at one replica, without one (the wrapper builds
+    it). The layouts' build time is logged as set-up. Timed at cost 1 on
+    each shape, each timing graph replayed once more on a new state and
+    held exact, and on SSSP's fixed point (``sssp_state`` on every
+    member), where no candidate wins."""
+    from repro_torch.core import algorithms as A
     from repro_torch.kernels import ops, ref
     dev = part.device
     kv = part.k * part.n_vertices
@@ -1351,41 +1389,128 @@ def _minplus_section(g, part, gen, times, sssp_state) -> dict:
         return mask & (torch.rand(mask.shape, generator=gen, device=dev)
                        >= 0.05)
 
+    build = {}
+    for name, make in (
+            ("etsch", lambda: ops.minplus_layout(
+                part.flat_src, part.flat_dst, kv, groups=part.k)),
+            ("graph", lambda: ops.minplus_layout(g.src, g.dst,
+                                                 g.n_vertices)),
+            ("usroads", lambda: ops.minplus_layout(
+                road_part.flat_src, road_part.flat_dst,
+                road_part.k * road_part.n_vertices, groups=road_part.k))):
+        lay, t = wall(make)
+        build[name] = {"wall_s": t, "tile_rows": lay.tile_rows,
+                       "half_edges": int(lay.half_edges.shape[0]),
+                       "short_rows": int(lay.entries.shape[0])
+                       - sum(lay.counts),
+                       "units": list(lay.counts)}
+    log({"phase": "kernels.minplus_sweep.layout", **build})
+    member_sv = part.member[:, None, :].expand(part.k, N_SOURCES,
+                                               part.n_vertices).reshape(-1)
     cases = {
         "etsch": (state(kv, part.member.reshape(-1)), part.flat_src,
-                  part.flat_dst, thin(part.flat_mask)),
-        "graph": (state(g.n_vertices), g.src, g.dst, thin(g.edge_mask)),
+                  part.flat_dst, thin(part.flat_mask), part.minplus_layout),
+        "graph": (state(g.n_vertices), g.src, g.dst, thin(g.edge_mask),
+                  A._graph_layout(g)),
+        "multi_source": (state(kv * N_SOURCES, member_sv), part.flat_src,
+                         part.flat_dst, thin(part.flat_mask),
+                         part.minplus_layout.with_replicas(N_SOURCES)),
+        "usroads": (state(road_part.k * road_part.n_vertices,
+                          road_part.member.reshape(-1)), road_part.flat_src,
+                    road_part.flat_dst, thin(road_part.flat_mask),
+                    road_part.minplus_layout),
     }
+
+    def plain(dist, src, dst, mask, lay, cost=1.0):
+        return ref.minplus_relax(dist, *lay.replicate(src, dst, mask), cost)
+
     err = 0.0
-    for name, args in cases.items():
+    for name, (dist, src, dst, mask, lay) in cases.items():
         for cost in (1.0, 0.0):
-            got = ops.minplus_sweep(*args, cost=cost)
-            want = ref.minplus_relax(*args, cost=cost)
+            want = plain(dist, src, dst, mask, lay, cost)
+            got = [ops.minplus_sweep(dist, src, dst, mask, cost, layout=lay)]
+            if lay.replicas == 1:
+                got.append(ops.minplus_sweep(dist, src, dst, mask, cost))
             torch.cuda.synchronize()
-            err = max(err, _max_abs(got, want))
-            require(torch.equal(got, want),
-                    f"minplus_sweep {name} cost {cost} is not exact")
-    dist, src, dst, mask = cases["etsch"]
-    s64, d64 = src.long(), dst.long()
-    cu = torch.where(mask, dist[s64] + 1.0, float("inf"))
-    cv = torch.where(mask, dist[d64] + 1.0, float("inf"))
-    t = times(kernel=lambda: ops.minplus_sweep(dist, src, dst, mask),
-              plain=lambda: ref.minplus_relax(dist, src, dst, mask),
-              library=lambda: dist.scatter_reduce(0, d64, cu, "amin")
-              .scatter_reduce_(0, s64, cv, "amin"))
-    t["graph_kernel_ms"] = device_ms(lambda: ops.minplus_sweep(
-        *cases["graph"]))
+            for out in got:
+                err = max(err, _max_abs(out, want))
+                require(torch.equal(out, want),
+                        f"minplus_sweep {name} cost {cost} is not exact")
+    out = {}
+    for name, (dist, src, dst, mask, lay) in cases.items():
+        static = dist.clone()
+        check = _replay_check(
+            f"minplus_sweep {name}", static, state(dist.numel()),
+            lambda d: plain(d, src, dst, mask, lay))
+        kernel = lambda: ops.minplus_sweep(static, src, dst, mask,
+                                           layout=lay)
+        if name == "etsch":
+            s64, d64 = src.long(), dst.long()
+            cu = torch.where(mask, dist[s64] + 1.0, float("inf"))
+            cv = torch.where(mask, dist[d64] + 1.0, float("inf"))
+            t = times(kernel=kernel,
+                      plain=lambda: plain(dist, src, dst, mask, lay),
+                      library=lambda: dist.scatter_reduce(
+                          0, d64, cu, "amin").scatter_reduce_(
+                              0, s64, cv, "amin"), check=check)
+        else:
+            t = {"kernel_ms": device_ms(kernel, check=check)}
+        t["bound_ms"], t["bound_by"] = _minplus_bound(
+            mask, lay.n_rows * lay.replicas, lay.replicas)
+        out[name] = {"rows": lay.n_rows * lay.replicas,
+                     "edge_slots": int(mask.numel()) * lay.replicas,
+                     "live_edges": int(mask.sum()) * lay.replicas, **t}
+    dist, src, dst, mask, lay = cases["etsch"]
     fixed = torch.where(part.member, sssp_state[None, :],
                         float("inf")).reshape(-1)
-    require(torch.equal(ops.minplus_sweep(fixed, src, dst, part.flat_mask),
-                        fixed), "SSSP's fixed point moved under a sweep")
-    t["fixpoint_kernel_ms"] = device_ms(lambda: ops.minplus_sweep(
-        fixed, src, dst, part.flat_mask))
-    live, e = int(mask.sum()), int(mask.numel())
-    t["bound_ms"], t["bound_by"] = _bound(8 * kv + e + 8 * live, 2 * live)
-    out = {"shape": [kv, e], "live_edges": live, "max_abs_err": err, **t}
-    log({"phase": "kernels.minplus_sweep", **out})
-    return out
+    require(torch.equal(ops.minplus_sweep(fixed, src, dst, part.flat_mask,
+                                          layout=lay), fixed),
+            "SSSP's fixed point moved under a sweep")
+    out["etsch"]["fixpoint_kernel_ms"] = device_ms(lambda: ops.minplus_sweep(
+        fixed, src, dst, part.flat_mask, layout=lay))
+    res = {"max_abs_err": err, "graph_replay_exact": True, **out}
+    log({"phase": "kernels.minplus_sweep", **res})
+    return res
+
+
+#: Hopper's SFU rate for ex2: results per clock per SM (CUDA C++
+#: Programming Guide, arithmetic instruction throughput, compute
+#: capability 9.0).
+EX2_PER_CLOCK_PER_SM = 16
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return 1e6 * float(out.strip().splitlines()[0])
+
+
+def _scan_bound(b: int, s: int, d: int, n: int, h0: bool):
+    """selective_scan's bound terms in ms, as ``(ms, by, terms)`` with
+    ``by`` "bytes" or "operations": x, dt, B, C, A and D read once, h0
+    read where it is given, y and h_last written once (bytes); 6 float32
+    operations per state element and step (flops); and one exp per state
+    element and step at EX2_PER_CLOCK_PER_SM on every SM at the maximum SM
+    clock (exps). The larger of flops and exps is the operations term."""
+    elems = b * s * d * n
+    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + d
+                  + b * d * n * (2 if h0 else 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    terms = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "flops_ms": 1e3 * 6 * elems / FP32_FLOPS,
+             "exps_ms": 1e3 * elems / (EX2_PER_CLOCK_PER_SM * sms
+                                       * _sm_clock_hz()),
+             "exps": elems, "sms": sms}
+    ops_ms = max(terms["flops_ms"], terms["exps_ms"])
+    terms["binding"] = ("bytes" if terms["bytes_ms"] >= ops_ms else
+                        "exps" if terms["exps_ms"] >= terms["flops_ms"]
+                        else "flops")
+    if terms["bytes_ms"] >= ops_ms:
+        return terms["bytes_ms"], "bytes", terms
+    return ops_ms, "operations", terms
 
 
 def _selective_scan_section(captured, gen, times) -> dict:
@@ -1394,10 +1519,9 @@ def _selective_scan_section(captured, gen, times) -> dict:
     captured layers' [B, S, Di] and N; the JAX
     kernel tests' distributions) from a zero and a random h0, S = 1 from a
     random h0 (decode), and the lm phase's captured layer inputs; timed at
-    the prefill shape from a zero state, as prefill calls it, and at S = 1.
-    The bound counts x, dt, B, C, A and D read once and y and h_last
-    written once, and 6 float32 operations per state element and step; it
-    leaves the exps out (no published rate in the table it uses)."""
+    the prefill shape from a zero state, as prefill calls it, and at S = 1
+    from h0, as decode calls it; bounds from :func:`_scan_bound`."""
+    from repro_torch import cuda_build
     from repro_torch.kernels import ops, ref
     x0, a0 = captured["layer0"][0], captured["layer0"][4]
     (b, s, d), n, dev = x0.shape, a0.shape[1], x0.device
@@ -1437,15 +1561,18 @@ def _selective_scan_section(captured, gen, times) -> dict:
         *cases["decode"]))
     t["decode_plain_ms"] = device_ms(lambda: ref.selective_scan_ref(
         *cases["decode"]))
-    t["bound_ms"], t["bound_by"] = _bound(
-        4 * (3 * b * s * d + 2 * b * s * n + d * n + d + b * d * n),
-        6 * b * s * d * n)
-    out = {"shape": [b, s, d, n], "max_abs_err": max(err.values()), **t}
+    terms = {"prefill": _scan_bound(b, s, d, n, h0=False),
+             "decode": _scan_bound(b, 1, d, n, h0=True)}
+    t["bound_ms"], t["bound_by"] = terms["prefill"][:2]
+    t["decode_bound_ms"], t["decode_bound_by"] = terms["decode"][:2]
+    out = {"shape": [b, s, d, n], "max_abs_err": max(err.values()),
+           "lanes_per_channel": cuda_build.query("selective_scan_lanes")(n),
+           "bound_terms": {k: v[2] for k, v in terms.items()}, **t}
     log({"phase": "kernels.selective_scan", **out})
     return out
 
 
-def phase_kernels(plan, launches, gnn_launches, g, owner, part,
+def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                   etsch_launches, sssp_state, lm_launches, lm_inputs):
     from repro_torch.engine import kernels as Kn
 
@@ -1557,7 +1684,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
     gs_t = _gspmm_timing(Kn, plan, gen, times)
     lc = _lane_cumsum_section(g, owner, gen, times)
     fm = _frontier_min_section(part, gen, times)
-    mp = _minplus_section(g, part, gen, times, sssp_state)
+    mp = _minplus_section(g, part, road_part, gen, times, sssp_state)
     ss = _selective_scan_section(lm_inputs, gen, times)
 
     seg_bound, seg_by = _seg_bound(plan)
@@ -1622,12 +1749,17 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
          "source": "src/repro_torch/csrc/minplus_sweep.cu",
          "replaces": "src/repro/kernels/minplus_sweep.py:28",
          "launches": etsch_launches["minplus_sweep"],
+         "launches_by_rows": etsch_launches["minplus_by_rows"],
          "max_abs_err": mp["max_abs_err"],
-         "ms": mp["kernel_ms"], "plain_ms": mp["plain_ms"],
-         "bound_ms": mp["bound_ms"], "bound_by": mp["bound_by"],
-         "library_ms": mp["library_ms"], "shape": mp["shape"],
-         "graph_ms": mp["graph_kernel_ms"],
-         "fixpoint_ms": mp["fixpoint_kernel_ms"]},
+         "ms": mp["etsch"]["kernel_ms"], "plain_ms": mp["etsch"]["plain_ms"],
+         "bound_ms": mp["etsch"]["bound_ms"],
+         "bound_by": mp["etsch"]["bound_by"],
+         "library_ms": mp["etsch"]["library_ms"],
+         "shape": [mp["etsch"]["rows"], mp["etsch"]["edge_slots"]],
+         "fixpoint_ms": mp["etsch"]["fixpoint_kernel_ms"],
+         **{name: {k: mp[name][k] for k in (
+             "rows", "edge_slots", "kernel_ms", "bound_ms", "bound_by")}
+            for name in ("graph", "multi_source", "usroads")}},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",
@@ -1637,7 +1769,11 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part,
          "bound_ms": ss["bound_ms"], "bound_by": ss["bound_by"],
          "library_ms": None, "eager_ms": ss["kernel_eager_ms"],
          "shape": ss["shape"], "decode_ms": ss["decode_kernel_ms"],
-         "decode_plain_ms": ss["decode_plain_ms"]},
+         "decode_plain_ms": ss["decode_plain_ms"],
+         "decode_bound_ms": ss["decode_bound_ms"],
+         "decode_bound_by": ss["decode_bound_by"],
+         "lanes_per_channel": ss["lanes_per_channel"],
+         "bound_terms": ss["bound_terms"]},
     ]}
 
 
@@ -1690,11 +1826,12 @@ def main() -> int:
     card = phase_device()
     g, owner, plan, launches, sssp_state = phase_main()
     gnn_launches = phase_gnn(g, plan)
-    part, etsch_launches = phase_etsch(g, owner, plan, sssp_state)
+    part, road_part, etsch_launches = phase_etsch(g, owner, plan,
+                                                  sssp_state)
     lm_launches, lm_inputs = phase_lm()
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
-                                etsch_launches, sssp_state, lm_launches,
-                                lm_inputs)
+                                road_part, etsch_launches, sssp_state,
+                                lm_launches, lm_inputs)
     del lm_inputs
     phase_cpu_equal()
     _lm_cpu_equal()

@@ -200,12 +200,23 @@ def etsch_mis(part: Partitioning, prio=None, seed: int = 0,
 # Whole-graph vertex-centric references (correctness oracles + gain baseline)
 # ---------------------------------------------------------------------------
 
+def _graph_layout(g: Graph) -> ops.MinplusLayout:
+    """``minplus_sweep``'s layout of the whole graph, built once per
+    :class:`Graph` (which is immutable)."""
+    lay = g.__dict__.get("_minplus_layout")
+    if lay is None:
+        lay = ops.minplus_layout(g.src, g.dst, g.n_vertices)
+        object.__setattr__(g, "_minplus_layout", lay)
+    return lay
+
+
 def _vertex_centric(g: Graph, d: torch.Tensor, cost: float):
     """Sweeps of ``minplus_sweep`` over the whole graph until nothing
     changes, at most ``n_vertices`` rounds. Returns (values, rounds)."""
-    r, changed = 0, True
+    r, changed, lay = 0, True, _graph_layout(g)
     while changed and r < g.n_vertices:
-        nd = ops.minplus_sweep(d, g.src, g.dst, g.edge_mask, cost)
+        nd = ops.minplus_sweep(d, g.src, g.dst, g.edge_mask, cost,
+                               layout=lay)
         changed = bool((nd != d).any())
         d, r = nd, r + 1
     return d, r
@@ -380,9 +391,10 @@ def etsch_multi_sssp(part: Partitioning, sources,
                      max_supersteps: int = 512) -> MultiSsspResult:
     """Distances from every source in ``sources`` [S] at once; the frontier
     aggregation reconciles an [S, V] replica block per partition. The local
-    sweep is one ``minplus_sweep`` over the flattened [K·S·V] state (edge
-    indices offset by ``(k·S + s)·V``), the aggregation one ``frontier_min``
-    over [K, S·V]."""
+    sweep is one ``minplus_sweep`` over the flattened [K·S·V] state (the
+    partitioning's [K·V] layout with S replicas: row ``k·V + v`` stands for
+    ``(k·S + s)·V + v``), the aggregation one ``frontier_min`` over
+    [K, S·V]."""
     dev = part.device
     k, v_n = part.k, part.n_vertices
     sources = _tensor(sources).to(dev).long().reshape(-1)
@@ -390,11 +402,7 @@ def etsch_multi_sssp(part: Partitioning, sources,
     is_src = sources[:, None] == torch.arange(v_n, device=dev)[None, :]
     member = part.member[:, None, :]                            # [K, 1, V]
     d = torch.where(member & is_src[None], 0.0, INF)            # [K, S, V]
-    base = (torch.arange(k * n_src, dtype=torch.int32, device=dev)
-            .view(k, n_src, 1) * v_n)                           # [K, S, 1]
-    flat_src = (base + part.src[:, None, :]).reshape(-1)
-    flat_dst = (base + part.dst[:, None, :]).reshape(-1)
-    flat_mask = part.mask[:, None, :].expand(k, n_src, part.e_max).reshape(-1)
+    lay = part.minplus_layout.with_replicas(n_src)
     member_sv = member.expand(k, n_src, v_n).reshape(k, n_src * v_n)
 
     def reduce(st):                                             # [S, V]
@@ -405,8 +413,9 @@ def etsch_multi_sssp(part: Partitioning, sources,
     while changed and steps < max_supersteps:
         d1, moved = d, True
         while moved:                                            # local phase
-            nd = ops.minplus_sweep(d1.reshape(-1), flat_src, flat_dst,
-                                   flat_mask, 1.0).view(k, n_src, v_n)
+            nd = ops.minplus_sweep(d1.reshape(-1), part.flat_src,
+                                   part.flat_dst, part.flat_mask, 1.0,
+                                   layout=lay).view(k, n_src, v_n)
             moved = bool((nd != d1).any())
             d1 = nd
         d2 = torch.where(member, reduce(d1)[None], INF)

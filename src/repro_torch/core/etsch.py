@@ -16,9 +16,10 @@ vertex-centric (one hop per round) execution is its *gain*.
 State is a dense [K, V] matrix of partition-local vertex copies; non-member
 entries hold the reducer's identity. The local phase is masked relaxation
 sweeps: :func:`min_relax_sweep` runs ``kernels.ops.minplus_sweep`` on the
-flattened [K·V] state (indices ``k·V + src``, derived once per
-:class:`Partitioning`). The min aggregation of SSSP and CC is
-``kernels.ops.frontier_min`` over the member mask, which equals the
+flattened [K·V] state (indices ``k·V + src`` and the kernel's
+target-sorted layout, derived once per :class:`Partitioning`). The min
+aggregation of SSSP and CC is ``kernels.ops.frontier_min`` over the
+member mask, which equals the
 reference's plain axis-0 min because every non-member entry holds
 ``+inf``. The reference's ``lax.while_loop``s are Python loops here: each
 fixed-point test is one device→host read per local sweep and per
@@ -85,6 +86,14 @@ class Partitioning:
     @property
     def flat_mask(self) -> torch.Tensor:
         return self.mask.reshape(-1)
+
+    @property
+    def minplus_layout(self) -> ops.MinplusLayout:
+        """``minplus_sweep``'s target-sorted layout of the flat edges over
+        the [K·V] state, one group per partition, built once."""
+        return self._memo("_minplus_layout", lambda: ops.minplus_layout(
+            self.flat_src, self.flat_dst, self.k * self.n_vertices,
+            groups=self.k))
 
     @classmethod
     def from_reference(cls, part, device=None) -> "Partitioning":
@@ -219,5 +228,6 @@ def min_relax_sweep(part: Partitioning, state: torch.Tensor,
     """
     k, v_n = state.shape
     out = ops.minplus_sweep(state.reshape(-1), part.flat_src, part.flat_dst,
-                            part.flat_mask, edge_cost)
+                            part.flat_mask, edge_cost,
+                            layout=part.minplus_layout)
     return out.view(k, v_n)

@@ -44,8 +44,9 @@ SIGNATURES = {
                     + [_I] * 3 + [_P]),
     "frontier_min": ("frontier_min", [_P] * 3 + [_I, ctypes.c_longlong, _I,
                                                  _I, _P]),
-    "minplus_sweep": ("minplus_sweep_f32", [_P] * 5
-                      + [ctypes.c_longlong] * 2 + [ctypes.c_float, _P]),
+    "minplus_sweep": ("minplus_sweep_f32", [_P] * 7
+                      + [_I] * 3 + [ctypes.c_longlong, _I, _I, _I, _I,
+                                    ctypes.c_float, _I, _P]),
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
 }
 #: Layout queries a library exports beside its entry point, so that the
@@ -55,6 +56,7 @@ QUERIES = {
     "lane_cumsum_tile_rows": ("lane_cumsum", [_I, _I]),
     "lane_cumsum_scratch_words": ("lane_cumsum",
                                   [ctypes.c_longlong, _I, _I]),
+    "selective_scan_lanes": ("selective_scan", [_I]),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

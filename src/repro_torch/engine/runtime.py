@@ -186,15 +186,18 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
 
     if prog.mode == "replica":
         def local_phase(st):
+            def sweep(s):
+                return prog.apply(s, _sweep(plan, prog, s, ctx,
+                                            use_kernels=use_kernels), ctx)
+
+            if not prog.local_fixpoint:   # exactly one sweep, uncapped
+                return sweep(st), 1
             it, changed = 0, True
             while changed and it < max_local_iters:
-                agg = _sweep(plan, prog, st, ctx, use_kernels=use_kernels)
-                ns = prog.apply(st, agg, ctx)
+                ns = sweep(st)
                 it += 1
                 changed = bool((ns != st).any())
                 st = ns
-                if not prog.local_fixpoint:
-                    break
             return st, it
 
         st, steps, litot, changed = state0, 0, 0, True

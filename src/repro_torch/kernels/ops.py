@@ -24,16 +24,20 @@ with their plain PyTorch versions (``ref``).
 ``minplus_sweep``
     One undirected min-plus relaxation sweep over an edge list: the ETSCH
     local phase and the vertex-centric references' round. CUDA C++ in
-    ``csrc/minplus_sweep.cu`` (a copy, then an atomic scatter-min of both
-    directions of every edge, candidates read from the input). Replaces
-    ``repro/kernels/minplus_sweep.py::minplus_sweep``.
+    ``csrc/minplus_sweep.cu``: one launch that pulls, over a target-sorted
+    :class:`MinplusLayout` of half-edges built once per edge list
+    (:func:`minplus_layout`); each output row is written once, with no
+    atomics. Replaces ``repro/kernels/minplus_sweep.py::minplus_sweep``.
 
 ``selective_scan``
     The Mamba-1 forward scan with an initial and a final state: every
     layer of LM prefill and of every decode step. CUDA C++ in
-    ``csrc/selective_scan.cu`` (a thread per state element with h in a
-    register, N lanes of a warp per channel, y by a shuffle reduction).
-    Replaces ``repro/kernels/selective_scan.py::selective_scan``.
+    ``csrc/selective_scan.cu``: a thread keeps N / L states of one channel
+    in registers (L, the lanes per channel, is the kernel's own rule:
+    ``selective_scan_lanes``), one ex2 per state and step,
+    chunks staged with ``cp.async`` into two buffers; decode (S = 1) has
+    its own unstaged kernel. Replaces
+    ``repro/kernels/selective_scan.py::selective_scan``.
 
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; a mix raises, and there is no fallback from one to
@@ -41,6 +45,8 @@ the other. Each launch adds one to :data:`LAUNCHES`. A dtype a kernel does
 not take raises ``ValueError``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -58,14 +64,31 @@ LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0,
 MIN_VEC_WIDTHS = (8, 4, 1)
 _CUMSUM_DTYPES = {torch.int32: 0, torch.float32: 1}
 _MIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: State widths the scan kernel takes (the lanes of one channel divide a
-#: warp).
+#: State widths the scan kernel takes.
 SCAN_STATES = (4, 8, 16, 32)
+#: Rows of state one minplus_sweep tile block owns, smallest first: a
+#: layout takes the largest whose tiles hold at most MINPLUS_TILE_EDGES
+#: half-edges on average (``csrc/minplus_sweep.cu`` takes up to 2048).
+MINPLUS_TILE_ROWS = (256, 512, 1024, 2048)
+MINPLUS_TILE_EDGES = 2048
+#: In-degree up to which a row is pulled by a thread of its tile (the .cu
+#: keeps 8 loads in flight); up to MINPLUS_WARP by a warp of its own, up to
+#: MINPLUS_HUB by a block of its own, and beyond (a hub) by a cluster of
+#: blocks.
+MINPLUS_SHORT = 8
+MINPLUS_WARP = 512
+MINPLUS_HUB = 4096
+#: Bits of an entry's second word that hold the row within its tile; the
+#: in-degree sits above them. The layout carries it to the kernel.
+MINPLUS_LOCAL_BITS = 12
+#: minplus_sweep launches by state rows since the last reset_launches.
+MINPLUS_LAUNCHES_BY_ROWS: dict[int, int] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    MINPLUS_LAUNCHES_BY_ROWS.clear()
 
 
 def _dtype_code(t: torch.Tensor, table: dict, kernel: str) -> int:
@@ -154,25 +177,191 @@ def frontier_min(state: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class MinplusLayout:
+    """The half-edges of an edge list grouped by target row, for
+    ``minplus_sweep``'s pull. It depends on ``src``/``dst`` alone, so any
+    mask works with it (read per call through the edge id).
+
+    The rows ``[0, n_rows)`` fall into ``groups`` equal groups (ETSCH's
+    partitions; 1 for a whole graph), and every edge stays inside one
+    group. A group is cut into tiles of ``tile_rows`` rows; tile ``t``'s
+    entries ``entries[tile_ptr[2t]:tile_ptr[2t+2]]`` are its short rows
+    (in-degree up to MINPLUS_SHORT), then, from ``tile_ptr[2t+1]``, its
+    other rows, each part by row. An entry is (first half-edge, row within
+    the tile | in-degree << ``local_bits``), the in-degree 0 for a row
+    that is not short: those rows are ``rows``' (row, first, end, 0), the
+    ``counts`` = (hubs, large, medium) of each kind in that order, each by
+    falling in-degree. ``loops_left_out`` counts the in-range self-loops
+    the layout leaves out: their candidate ``dist[r] + cost`` lowers row
+    ``r`` only at a negative cost, for which :func:`minplus_sweep` builds
+    a layout that keeps them. With ``replicas`` S the state holds S
+    copies of every group, row ``k·V + v`` of the layout standing for
+    ``(k·S + s)·V + v`` (multi-source SSSP's [K, S, V]), all under the
+    same edges and mask."""
+
+    n_rows: int
+    groups: int
+    n_edges: int
+    tile_rows: int
+    local_bits: int
+    replicas: int
+    loops_left_out: int
+    half_edges: torch.Tensor   # [H, 2] int32 (other row, edge id)
+    entries: torch.Tensor      # [A, 2] int32
+    tile_ptr: torch.Tensor     # [2·n_tiles + 1] int32
+    rows: torch.Tensor         # [hubs + large + medium, 4] int32
+    counts: tuple              # (hubs, large, medium)
+    edges_at: tuple            # (src, dst) data pointers it was built from
+
+    @property
+    def group_rows(self) -> int:
+        return self.n_rows // self.groups
+
+    @property
+    def n_tiles(self) -> int:
+        return self.groups * -(-self.group_rows // self.tile_rows)
+
+    def with_replicas(self, replicas: int) -> "MinplusLayout":
+        """The same layout over ``replicas`` copies of every group."""
+        return dataclasses.replace(self, replicas=int(replicas))
+
+    def built_from(self, src: torch.Tensor, dst: torch.Tensor) -> bool:
+        return self.edges_at == (src.data_ptr(), dst.data_ptr(),
+                                 int(src.numel()))
+
+    def replicate(self, src, dst, mask):
+        """The edge list over all replicas as plain arrays (the layout's
+        meaning, for the plain version)."""
+        if self.replicas == 1:
+            return src, dst, mask
+        v, s_n = self.group_rows, self.replicas
+        shift = ((src.long() // v) * (s_n - 1))[None, :] + torch.arange(
+            s_n, device=src.device)[:, None]
+        return ((src.long()[None, :] + shift * v).reshape(-1),
+                (dst.long()[None, :] + shift * v).reshape(-1),
+                mask[None, :].expand(s_n, -1).reshape(-1))
+
+
+def minplus_tile_rows(n_rows: int, n_half_edges: int) -> int:
+    """The largest of MINPLUS_TILE_ROWS whose tiles average at most
+    MINPLUS_TILE_EDGES half-edges (the smallest if none does)."""
+    fits = [t for t in MINPLUS_TILE_ROWS
+            if t * n_half_edges <= MINPLUS_TILE_EDGES * max(n_rows, 1)]
+    return fits[-1] if fits else MINPLUS_TILE_ROWS[0]
+
+
+def minplus_row_kind(degree: torch.Tensor) -> torch.Tensor:
+    """0 short, 1 medium, 2 large, 3 hub, by in-degree (> 0)."""
+    return ((degree > MINPLUS_SHORT).long() + (degree > MINPLUS_WARP).long()
+            + (degree > MINPLUS_HUB).long())
+
+
+def minplus_layout(src: torch.Tensor, dst: torch.Tensor, n_rows: int,
+                   groups: int = 1, loops: bool = False) -> MinplusLayout:
+    """Build the :class:`MinplusLayout` of the edge list ``src``/``dst``
+    [E] (int32 rows in [0, n_rows)) on their device, in plain PyTorch.
+    Edge ``e`` = (u, v) gives the half-edges (v <- u) and, unless u == v,
+    (u <- v); a self-loop (u == v) gives its one half-edge only with
+    ``loops``; an edge with an endpoint outside [0, n_rows) gives none (the
+    sweep ignores it). Raises if an edge joins two groups."""
+    dev = src.device
+    if n_rows % groups:
+        raise ValueError(f"minplus_layout: {n_rows} rows do not split into "
+                         f"{groups} groups")
+    v = n_rows // groups
+    e = int(src.numel())
+    s, d = src.reshape(-1).long(), dst.reshape(-1).long()
+    ok = (s >= 0) & (s < n_rows) & (d >= 0) & (d < n_rows)
+    if groups > 1 and bool((ok & (s // v != d // v)).any()):
+        raise ValueError("minplus_layout: an edge joins two groups")
+    back = ok & (s != d)
+    fwd = ok if loops else back
+    eid = torch.arange(e, device=dev)
+    tgt = torch.cat([d[fwd], s[back]])
+    other = torch.cat([s[fwd], d[back]])
+    ids = torch.cat([eid[fwd], eid[back]])
+    order = torch.argsort(tgt * max(e, 1) + ids)   # unique keys
+    tgt, other, ids = tgt[order], other[order], ids[order]
+    deg = torch.bincount(tgt, minlength=n_rows)
+    first = torch.cumsum(deg, 0) - deg
+    tile = minplus_tile_rows(n_rows, int(tgt.numel()))
+    per_group = -(-v // tile)
+    rows = torch.nonzero(deg).reshape(-1)
+    rdeg = deg[rows]
+    kind = minplus_row_kind(rdeg)
+    # the tiles' entries: short rows, then the others, each part by row
+    tile_of = (rows // v) * per_group + (rows % v) // tile
+    local = (rows % v) % tile
+    part = (kind > 0).long()
+    order = torch.argsort((tile_of * 2 + part) * tile + local)
+    per_part = torch.bincount(tile_of * 2 + part,
+                              minlength=2 * groups * per_group)
+    tile_ptr = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                          torch.cumsum(per_part, 0)])
+    packed = local | (torch.where(kind == 0, rdeg, 0) << MINPLUS_LOCAL_BITS)
+    entries = torch.stack([first[rows], packed], 1)[order]
+    # the units' rows: hubs, then large, then medium, each by falling
+    # in-degree, then by row
+    unit = torch.nonzero(kind > 0).reshape(-1)
+    unit = unit[torch.argsort(((3 - kind[unit]) * (e + 1) + e - rdeg[unit])
+                              * (n_rows + 1) + rows[unit])]
+    ur = rows[unit]
+    n_kind = torch.bincount(kind, minlength=4).tolist()
+    i32 = torch.int32
+    return MinplusLayout(
+        n_rows, groups, e, tile, MINPLUS_LOCAL_BITS, 1,
+        0 if loops else int((ok & (s == d)).sum()),
+        torch.stack([other, ids], 1).to(i32).contiguous(),
+        entries.to(i32).contiguous(), tile_ptr.to(i32),
+        torch.stack([ur, first[ur], first[ur] + deg[ur],
+                     torch.zeros_like(ur)], 1).to(i32).contiguous(),
+        (n_kind[3], n_kind[2], n_kind[1]),
+        (src.data_ptr(), dst.data_ptr(), e))
+
+
 def minplus_sweep(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                  mask: torch.Tensor, cost: float = 1.0) -> torch.Tensor:
+                  mask: torch.Tensor, cost: float = 1.0, *,
+                  layout: MinplusLayout | None = None) -> torch.Tensor:
     """One undirected min-plus relaxation sweep, Jacobi: dist [V] float32,
     src/dst [E] int32 in [0, V), mask [E] bool -> [V]. Bit-identical to
-    :func:`ref.minplus_relax`. CUDA tensors launch the kernel; CPU tensors
-    run the plain version."""
+    :func:`ref.minplus_relax`. ``layout``, built from this ``src``/``dst``
+    by :func:`minplus_layout`, saves building it on each call; with
+    ``layout.replicas`` S > 1, dist is the [S·n_rows] state of
+    :class:`MinplusLayout` and src/dst/mask are one replica's edges. CUDA
+    tensors launch the kernel (building a layout first when none is
+    given, or when a negative cost needs the self-loops the layout left
+    out); CPU tensors run the plain version."""
     _dtype_code(dist, {torch.float32: 0}, "minplus_sweep")
+    if layout is not None and not layout.built_from(src, dst):
+        raise ValueError("minplus_sweep: the layout was built from another "
+                         "edge list")
     if not _on_card(dist, src, dst, mask):
+        if layout is not None:
+            src, dst, mask = layout.replicate(src, dst, mask)
         return ref.minplus_relax(dist, src, dst, mask, cost)
-    v, e = int(dist.numel()), int(src.numel())
-    _check(dist, "dist", torch.float32, (v,))
+    e = int(src.numel())
     _check(src, "src", torch.int32, (e,))
     _check(dst, "dst", torch.int32, (e,))
     _check(mask, "mask", torch.bool, (e,))
+    if layout is None:
+        layout = minplus_layout(src, dst, int(dist.numel()), loops=cost < 0)
+    elif cost < 0 and layout.loops_left_out:
+        layout = minplus_layout(src, dst, layout.n_rows, layout.groups,
+                                loops=True).with_replicas(layout.replicas)
+    rows = layout.n_rows * layout.replicas
+    _check(dist, "dist", torch.float32, (rows,))
     out = torch.empty_like(dist)
+    vec = 4 if layout.group_rows % 4 == 0 and dist.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0 else 1
     rc = cuda_build.entry("minplus_sweep")(
-        dist.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), v, e, float(cost), _stream())
+        dist.data_ptr(), out.data_ptr(), mask.data_ptr(),
+        layout.half_edges.data_ptr(), layout.entries.data_ptr(),
+        layout.tile_ptr.data_ptr(), layout.rows.data_ptr(), *layout.counts,
+        layout.group_rows, layout.groups, layout.tile_rows,
+        layout.local_bits, layout.replicas, float(cost), vec, _stream())
     _launched("minplus_sweep", rc)
+    MINPLUS_LAUNCHES_BY_ROWS[rows] = MINPLUS_LAUNCHES_BY_ROWS.get(rows, 0) + 1
     return out
 
 

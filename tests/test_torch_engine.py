@@ -125,6 +125,40 @@ def test_superstep_cap_reports_nonconvergence():
     np.testing.assert_array_equal(full.state.numpy(), np.asarray(ref))
 
 
+def _one_sweep_pair(case, pipelines):
+    """(reference engine, port engine, source) for the local-cap cases."""
+    if case == "two-vertex":
+        edges = np.array([[0, 1]])
+        g = RG.from_edge_array(2, edges)
+        owner = np.where(np.asarray(g.edge_mask), 0, -2).astype(np.int32)
+        gt = TG.from_edge_array(2, edges, device=CPU)
+        owner_t = torch.as_tensor(owner)
+        return (E.Engine(E.compile_plan(g, owner, 1)),
+                TE.Engine(TE.compile_plan(gt, owner_t, 1, device=CPU)), 0)
+    g, owner, _, gt, owner_t, _ = pipelines[("powerlaw", 4)]
+    return (E.Engine(E.compile_plan(g, owner, 4)),
+            TE.Engine(TE.compile_plan(gt, owner_t, 4, device=CPU)), SOURCE)
+
+
+@pytest.mark.parametrize("max_local_iters", [0, 1])
+@pytest.mark.parametrize("case", ["two-vertex", "powerlaw-k4"])
+def test_one_sweep_program_ignores_local_cap(pipelines, case,
+                                             max_local_iters):
+    """A replica program without a local fixed point runs exactly one sweep
+    a superstep, whatever ``max_local_iters`` is, as the reference does."""
+    eng, eng_t, source = _one_sweep_pair(case, pipelines)
+    ref = eng.run(E.SSSP._replace(local_fixpoint=False),
+                  max_local_iters=max_local_iters, source=source)
+    port = eng_t.run(TE.SSSP._replace(local_fixpoint=False),
+                     max_local_iters=max_local_iters, source=source)
+    np.testing.assert_array_equal(port.state.numpy(), np.asarray(ref.state))
+    assert port.row() == _row(ref)
+    assert port.local_iters == port.supersteps
+    if case == "two-vertex":
+        np.testing.assert_array_equal(port.state.numpy(), [0.0, 1.0])
+        assert (port.supersteps, port.local_iters) == (2, 2)
+
+
 def test_zero_supersteps_is_zero():
     g = TG.watts_strogatz(64, 4, 0.1, seed=0, device=CPU)
     owner = (g.src + g.dst) % 2

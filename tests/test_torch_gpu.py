@@ -496,8 +496,8 @@ def test_frontier_min_graph_replays_on_card():
 @pytest.mark.gpu
 def test_minplus_sweep_matches_plain_on_card():
     """Bit-identical to the plain version, with +inf and negative
-    distances, masked, duplicate and self-target edges, at costs 1, 0 and
-    0.5; one launch per call."""
+    distances, masked, duplicate and self-target edges, at costs 1, 0, 0.5
+    and -1 (where the self-loops count); one launch per call."""
     from repro_torch.kernels import ops as TO
     dev = _card()
     rng = np.random.default_rng(5)
@@ -510,12 +510,112 @@ def test_minplus_sweep_matches_plain_on_card():
     dist = np.where(rng.random(v) < 0.3, rng.random(v) * 10 - 3,
                     np.inf).astype(np.float32)
     args = [torch.from_numpy(a) for a in (dist, src, dst, mask)]
-    for cost in (1.0, 0.0, 0.5):
+    for cost in (1.0, 0.0, 0.5, -1.0):
         before = TO.LAUNCHES["minplus_sweep"]
         got = TO.minplus_sweep(*[a.to(dev) for a in args], cost=cost)
         torch.cuda.synchronize()
         assert TO.LAUNCHES["minplus_sweep"] == before + 1
         assert torch.equal(got.cpu(), TO.minplus_sweep(*args, cost=cost))
+
+
+def _minplus_graph(v: int, e: int, hub_edges: int, seed: int):
+    """Random edges of ``v`` vertices with one hub (vertex 1) of
+    ``hub_edges`` edges, a large row of 1,000 (vertex 2), a medium row of
+    300 (vertex 3), duplicates, self-loops and padding slots (0, 0), ~10%
+    masked; dist with +inf and negative values."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, v, e)
+    dst = rng.integers(0, v, e)
+    dst[:hub_edges] = 1
+    src[hub_edges: hub_edges + 1000] = 2
+    src[hub_edges + 1000: hub_edges + 1300] = 3
+    src[-600:-400], dst[-600:-400] = src[:200], dst[:200]
+    dst[-400:-200] = src[-400:-200]
+    src[-200:] = dst[-200:] = 0
+    mask = rng.random(e) < 0.9
+    mask[-200:] = False
+    dist = np.where(rng.random(v) < 0.3, rng.random(v) * 10 - 3, np.inf)
+    return (dist.astype(np.float32), src.astype(np.int32),
+            dst.astype(np.int32), mask)
+
+
+def _minplus_shapes(seed: int):
+    """(name, dist, src, dst, mask, layout maker) on the CPU at the three
+    shapes: a whole graph's [V], ETSCH's flat [K·V] (K groups, hubs in
+    every group) and the multi-source [K·S·V] under the flat layout with
+    S replicas."""
+    from repro_torch.kernels import ops as TO
+    k, v, reps = 4, 3_000, 3    # the graph's odd V takes the scalar copy
+    dist, src, dst, mask = _minplus_graph(v + 1, 40_000, 9_000, seed)
+    parts = [_minplus_graph(v, 20_000, 5_000 + 500 * i, seed + 1 + i)
+             for i in range(k)]
+    fdist = np.concatenate([p[0] for p in parts])
+    fsrc = np.concatenate([p[1] + i * v for i, p in enumerate(parts)])
+    fdst = np.concatenate([p[2] + i * v for i, p in enumerate(parts)])
+    fmask = np.concatenate([p[3] for p in parts])
+    rng = np.random.default_rng(seed)
+    mdist = np.where(rng.random(k * reps * v) < 0.3,
+                     rng.random(k * reps * v) * 10, np.inf).astype(np.float32)
+    t = torch.from_numpy
+    return [
+        ("graph", t(dist), t(src), t(dst), t(mask),
+         lambda s, d: TO.minplus_layout(s, d, v + 1)),
+        ("flat", t(fdist), t(fsrc), t(fdst), t(fmask),
+         lambda s, d: TO.minplus_layout(s, d, k * v, groups=k)),
+        ("multi", t(mdist), t(fsrc), t(fdst), t(fmask),
+         lambda s, d: TO.minplus_layout(s, d, k * v, groups=k)
+         .with_replicas(reps)),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["graph", "flat", "multi"])
+def test_minplus_sweep_layouts_on_card(shape):
+    """Bit-identical to the plain version at the three shapes, with hubs
+    past MINPLUS_HUB (a cluster each), large and medium rows (a block and
+    a warp each), padding and self-loops, at costs 1, 0, 0.5 and -1 (the
+    prebuilt layout leaves the self-loops out, so -1 builds one with
+    them), with a prebuilt layout and (one replica) without; one launch
+    per call."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    name, dist, src, dst, mask, make = next(
+        c for c in _minplus_shapes(11) if c[0] == shape)
+    cs, cd, cm, cdist = (a.to(dev) for a in (src, dst, mask, dist))
+    lay = make(cs, cd)
+    assert min(lay.counts) >= 1   # hubs, large and medium rows
+    assert lay.loops_left_out > 0
+    for cost in (1.0, 0.0, 0.5, -1.0):
+        want = TO.minplus_sweep(dist, src, dst, mask, cost,
+                                layout=make(src, dst))
+        calls = [lambda: TO.minplus_sweep(cdist, cs, cd, cm, cost,
+                                          layout=lay)]
+        if lay.replicas == 1:
+            calls.append(lambda: TO.minplus_sweep(cdist, cs, cd, cm, cost))
+        for call in calls:
+            before = TO.LAUNCHES["minplus_sweep"]
+            got = call()
+            torch.cuda.synchronize()
+            assert TO.LAUNCHES["minplus_sweep"] == before + 1
+            assert torch.equal(got.cpu(), want), (name, cost)
+
+
+@pytest.mark.gpu
+def test_minplus_sweep_graph_replays_on_card():
+    """One sweep with the flat layout captured in a CUDA graph, replayed
+    on three states: each output equals the plain version."""
+    from repro_torch.kernels import ops as TO
+    dev = _card()
+    _, dist, src, dst, mask, make = _minplus_shapes(12)[1]
+    cs, cd, cm = (a.to(dev) for a in (src, dst, mask))
+    lay = make(cs, cd)
+    gen = torch.Generator().manual_seed(4)
+    states = [torch.where(torch.rand(dist.shape, generator=gen) < 0.3,
+                          torch.rand(dist.shape, generator=gen) * 9,
+                          float("inf")) for _ in range(3)]
+    _replays_equal(lambda d: TO.minplus_sweep(d, cs, cd, cm, layout=lay),
+                   states[0].to(dev).clone(), states,
+                   lambda d: TO.minplus_sweep(d, src, dst, mask))
 
 
 @pytest.mark.gpu
@@ -581,10 +681,14 @@ SCAN_REL = 1e-5
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d,n", [(2, 100, 48, 8), (1, 70, 40, 32),
                                      (3, 33, 100, 4), (2, 1, 64, 16),
-                                     (1, 257, 300, 16)])
+                                     (1, 257, 300, 16), (2, 1, 40, 4),
+                                     (2, 1, 36, 8), (3, 1, 50, 32),
+                                     (4, 1, 8192, 16), (2, 16, 64, 16),
+                                     (2, 17, 130, 16), (1, 2, 24, 8)])
 def test_selective_scan_matches_plain_on_card(b, s, d, n):
     """y and h_last against the plain loop, with and without h0, ragged
-    channel blocks and sequence chunks; one launch per call."""
+    channel blocks and sequence chunks (S = 1 takes the decode kernel);
+    one launch per call."""
     from repro_torch.kernels import ops as TO
     dev = _card()
     gen = torch.Generator().manual_seed(b * 1000 + s + n)
@@ -608,6 +712,18 @@ def test_selective_scan_matches_plain_on_card(b, s, d, n):
     with pytest.raises(ValueError, match="state width"):
         TO.selective_scan(*(t.to(dev) for t in (
             x, dt, bb[..., :3], cc[..., :3], a[:, :3], dsk)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lanes", [(4, 1), (8, 1), (16, 1), (32, 2),
+                                     (12, -1)])
+def test_selective_scan_lanes_on_card(n, lanes):
+    """The prefill kernel's lanes per channel for each state width: one
+    wherever a thread can hold all N states (the fastest at N = 16 on an
+    H100), two at N = 32; -1 for a width it does not take."""
+    from repro_torch import cuda_build
+    _card()
+    assert cuda_build.query("selective_scan_lanes")(n) == lanes
 
 
 @pytest.mark.gpu

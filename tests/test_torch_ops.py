@@ -213,3 +213,256 @@ def test_minplus_sweep_rejects_other_dtypes_and_mixed_devices():
         TO.minplus_sweep(torch.zeros(4, dtype=torch.float64), idx, idx, mask)
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         TO.minplus_sweep(torch.zeros(4, device="meta"), idx, idx, mask)
+
+
+# ---------------------------------------------------------------------------
+# minplus_sweep's target-sorted layout
+# ---------------------------------------------------------------------------
+
+def _layout_case(groups: int, v: int, seed: int):
+    """Flat edges of ``groups`` groups of ``v`` rows (indices ``k·v + x``)
+    with a hub per group, a long row, self-loops, padding slots (0, 0),
+    and, in group 0, endpoints outside the state."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for k in range(groups):
+        e = 6 * v
+        s = rng.integers(0, v, e)
+        d = rng.integers(0, v, e)
+        d[: 3 * v // 2] = 1                       # hub row 1
+        s[3 * v // 2: 3 * v // 2 + 40] = 2        # a long row: 2
+        d[-30:] = s[-30:]                         # self-loops
+        s[-60:-30] = d[-60:-30] = 0               # padding slots
+        src.append(s + k * v)
+        dst.append(d + k * v)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    n = groups * v
+    src[:3], dst[3:6] = [-1, n, n + 5], [-7, n, 2 * n]
+    mask = rng.random(src.size) < 0.9
+    mask[-60:-30] = False
+    dist = np.where(rng.random(n) < 0.4, rng.random(n) * 10 - 2,
+                    np.inf).astype(np.float32)
+    return dist, src.astype(np.int32), dst.astype(np.int32), mask
+
+
+@pytest.fixture
+def small_classes(monkeypatch):
+    """Row kinds and tiles small enough for a test graph to hold all."""
+    monkeypatch.setattr(TO, "MINPLUS_SHORT", 4)
+    monkeypatch.setattr(TO, "MINPLUS_WARP", 30)
+    monkeypatch.setattr(TO, "MINPLUS_HUB", 64)
+    monkeypatch.setattr(TO, "MINPLUS_TILE_ROWS", (16, 32, 64))
+    monkeypatch.setattr(TO, "MINPLUS_TILE_EDGES", 64)
+
+
+def _tiles(lay):
+    """Per tile: (first layout row, short entries, other entries)."""
+    ent, tp = lay.entries.numpy(), lay.tile_ptr.numpy()
+    per_group = -(-lay.group_rows // lay.tile_rows)
+    for t in range(lay.n_tiles):
+        row0 = ((t // per_group) * lay.group_rows
+                + (t % per_group) * lay.tile_rows)
+        yield (row0, ent[tp[2 * t]: tp[2 * t + 1]],
+               ent[tp[2 * t + 1]: tp[2 * t + 2]])
+
+
+def _layout_rows(lay):
+    """(target, other, edge id, kind, position) of every half-edge the
+    layout hands to a tile or a unit, the tiles' entries and the units'
+    rows checked for order and kind."""
+    he, units = lay.half_edges.numpy(), lay.rows.numpy()
+    tp = lay.tile_ptr.numpy()
+    bits, low = lay.local_bits, (1 << lay.local_bits) - 1
+    assert tp[0] == 0 and tp[-1] == len(lay.entries)
+    assert (np.diff(tp) >= 0).all() and len(tp) == 2 * lay.n_tiles + 1
+    seen, skipped = [], []
+    for row0, shorts, others in _tiles(lay):
+        for chunk in (shorts, others):
+            local = chunk[:, 1] & low
+            assert (np.diff(local) > 0).all()
+            assert (local < lay.tile_rows).all()
+            assert (row0 % lay.group_rows + local < lay.group_rows).all()
+        skipped.extend(row0 + (others[:, 1] & low))
+        assert (others[:, 1] >> bits == 0).all()
+        for first, word in shorts:
+            deg = word >> bits
+            assert 0 < deg <= TO.MINPLUS_SHORT
+            seen.extend((row0 + (word & low), *he[i], 0, i)
+                        for i in range(first, first + deg))
+    assert sorted(units[:, 0]) == sorted(skipped)
+    kinds = np.repeat([3, 2, 1], lay.counts)
+    assert len(kinds) == len(units)
+    for kind in (3, 2, 1):      # each kind by falling in-degree, then row
+        deg = (units[:, 2] - units[:, 1])[kinds == kind]
+        keys = list(zip(-deg, units[kinds == kind, 0]))
+        assert keys == sorted(keys)
+        assert (TO.minplus_row_kind(torch.from_numpy(deg)).numpy()
+                == kind).all()
+    for (row, first, end, _), kind in zip(units, kinds):
+        seen.extend((row, *he[i], kind, i) for i in range(first, end))
+    return seen
+
+
+@pytest.mark.parametrize("loops", [False, True])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_minplus_layout_holds_every_half_edge_once(small_classes, groups,
+                                                   loops):
+    """Every in-range half-edge once under its target, a self-loop's
+    only with ``loops`` (else counted in ``loops_left_out``)."""
+    dist, src, dst, mask = _layout_case(groups, 50, seed=groups)
+    n = dist.size
+    lay = TO.minplus_layout(torch.from_numpy(src), torch.from_numpy(dst), n,
+                            groups=groups, loops=loops)
+    assert (lay.n_rows, lay.groups, lay.replicas) == (n, groups, 1)
+    assert lay.local_bits == TO.MINPLUS_LOCAL_BITS
+    assert lay.tile_rows == TO.minplus_tile_rows(n, lay.half_edges.shape[0])
+    seen = _layout_rows(lay)
+    ok = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    n_loops = int((ok & (src == dst)).sum())
+    assert n_loops >= 30 * groups
+    assert lay.loops_left_out == (0 if loops else n_loops)
+    want = sorted([(d, s, e) for e, (s, d) in enumerate(zip(src, dst))
+                   if ok[e] and (loops or s != d)]
+                  + [(s, d, e) for e, (s, d) in enumerate(zip(src, dst))
+                     if ok[e] and s != d])
+    assert sorted((t, o, e) for t, o, e, *_ in seen) == want
+    # each position once, the half-edge array sorted by (target, edge id)
+    by_pos = sorted(seen, key=lambda r: r[4])
+    assert [r[4] for r in by_pos] == list(range(len(want)))
+    keys = [(t, e) for t, _, e, *_ in by_pos]
+    assert keys == sorted(keys)
+    deg = np.bincount([t for t, _, _ in want], minlength=n)
+    for t, _, _, kind, _ in seen:
+        assert kind == TO.minplus_row_kind(torch.tensor(deg[t])).item()
+    # every kind occurs: the hubs (row 1 of each group), the long row 2
+    assert set(lay.rows[: lay.counts[0], 0].tolist()) >= {
+        k * 50 + 1 for k in range(groups)}
+    assert {t for t, _, _, kind, _ in seen if kind in (1, 2)} >= {
+        k * 50 + 2 for k in range(groups)}
+    assert min(lay.counts) > 0
+
+
+def test_minplus_layout_refuses_edges_across_groups():
+    src = torch.tensor([0, 5], dtype=torch.int32)
+    dst = torch.tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="two groups"):
+        TO.minplus_layout(src, dst, 8, groups=2)
+
+
+@pytest.mark.parametrize("rows,half_edges,want", [
+    (5_073_280, 1_995_711, 2048),    # ETSCH's flat dblp state
+    (317_080, 1_902_527, 256),       # the whole dblp graph
+    (1000, 8_000, 256),              # 8 a row: the smallest
+    (1000, 4_000, 512),
+    (0, 0, 2048)])
+def test_minplus_tile_rows(rows, half_edges, want):
+    assert TO.minplus_tile_rows(rows, half_edges) == want
+
+
+def _pull_over_layout(dist, mask, lay, cost):
+    """The kernel's reading of the layout in numpy, in every replica: each
+    tile pulls its short rows and writes every row but its others; each
+    unit pulls and writes its row. Each row must be written exactly
+    once."""
+    he, units = lay.half_edges.numpy(), lay.rows.numpy()
+    v, reps = lay.group_rows, lay.replicas
+    bits, low = lay.local_bits, (1 << lay.local_bits) - 1
+    out = np.full_like(dist, np.nan)
+    writes = np.zeros(dist.size, int)
+
+    def pull(off, lo, hi):
+        o, e = he[lo:hi, 0], he[lo:hi, 1]
+        c = np.where(mask[e], dist[off + o] + np.float32(cost), np.inf)
+        return np.float32(c.min(initial=np.inf))
+
+    for s in range(reps):
+        for row0, shorts, others in _tiles(lay):
+            off = (row0 // v * (reps - 1) + s) * v
+            w = min(lay.tile_rows, v - row0 % v)
+            cand = np.full(w, np.inf, np.float32)
+            for first, word in shorts:
+                cand[word & low] = pull(off, first, first + (word >> bits))
+            keep = np.ones(w, bool)
+            keep[others[:, 1] & low] = False
+            rows = off + row0 + np.arange(w)[keep]
+            out[rows] = np.where(cand[keep] < dist[rows], cand[keep],
+                                 dist[rows])
+            writes[rows] += 1
+        for row, first, end, _ in units:
+            off = (row // v * (reps - 1) + s) * v
+            c = pull(off, first, end)
+            out[off + row] = c if c < dist[off + row] else dist[off + row]
+            writes[off + row] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("cost", [1.0, 0.0, -1.0])
+def test_minplus_pull_over_layout_matches_ref_and_pallas(small_classes,
+                                                         groups, cost):
+    """The pull over the layout is bit-identical to the plain scatter and
+    to the Pallas kernel in interpret mode (on the in-range edges, which
+    are all the Pallas kernel takes). A negative cost takes the layout
+    with self-loops, as the wrapper does: without them it would differ."""
+    dist, src, dst, mask = _layout_case(groups, 50, seed=10 + groups)
+    ts, td = torch.from_numpy(src), torch.from_numpy(dst)
+    lay = TO.minplus_layout(ts, td, dist.size, groups=groups,
+                            loops=cost < 0)
+    got = _pull_over_layout(dist, mask, lay, cost)
+    without = _pull_over_layout(
+        dist, mask, TO.minplus_layout(ts, td, dist.size, groups=groups),
+        cost)
+    assert np.array_equal(without, got) == (cost >= 0)
+    ok = (src >= 0) & (src < dist.size) & (dst >= 0) & (dst < dist.size)
+    args = [torch.from_numpy(a) for a in (dist, src[ok], dst[ok], mask[ok])]
+    np.testing.assert_array_equal(got, TR.minplus_relax(*args, cost).numpy())
+    jargs = [jnp.asarray(a) for a in (dist, src[ok], dst[ok], mask[ok])]
+    pallas = RO.minplus_sweep(*jargs, cost=cost, block_v=128, block_e=256)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+def test_minplus_replica_stride(small_classes):
+    """With S replicas, layout row k·V + v stands for state row
+    (k·S + s)·V + v: the pull equals S separate sweeps of each [K·V] slab
+    picked out by that formula, and the wrapper's plain path on the
+    replicated edge list."""
+    k, v, reps, cost = 3, 40, 5, 1.0
+    dist_kv, src, dst, mask = _layout_case(k, v, seed=7)
+    ok = (src >= 0) & (src < k * v) & (dst >= 0) & (dst < k * v)
+    src, dst, mask = src[ok], dst[ok], mask[ok]
+    ts, td, tm = (torch.from_numpy(a) for a in (src, dst, mask))
+    lay = TO.minplus_layout(ts, td, k * v, groups=k).with_replicas(reps)
+    rng = np.random.default_rng(3)
+    state = np.where(rng.random((k, reps, v)) < 0.4,
+                     rng.random((k, reps, v)) * 9, np.inf).astype(np.float32)
+    got = _pull_over_layout(state.reshape(-1), mask, lay, cost)
+    want = np.empty_like(state)
+    for s in range(reps):
+        slab = torch.from_numpy(np.ascontiguousarray(state[:, s]).reshape(-1))
+        want[:, s] = TR.minplus_relax(slab, ts, td, tm, cost).numpy().reshape(
+            k, v)
+    np.testing.assert_array_equal(got, want.reshape(-1))
+    rs, rd, rm = lay.replicate(ts, td, tm)
+    s_idx = np.repeat(np.arange(reps), src.size)
+    s_all, d_all = np.tile(src, reps), np.tile(dst, reps)
+    np.testing.assert_array_equal(
+        rs.numpy(), (s_all // v * reps + s_idx) * v + s_all % v)
+    np.testing.assert_array_equal(
+        rd.numpy(), (d_all // v * reps + s_idx) * v + d_all % v)
+    np.testing.assert_array_equal(rm.numpy(), np.tile(mask, reps))
+    plain = _launches_unchanged(lambda: TO.minplus_sweep(
+        torch.from_numpy(state.reshape(-1)), ts, td, tm, cost, layout=lay))
+    np.testing.assert_array_equal(plain.numpy(), want.reshape(-1))
+
+
+def test_minplus_sweep_with_layout_on_cpu():
+    """A layout changes nothing on the CPU; one built from another edge
+    list is refused."""
+    dist, src, dst, mask = _sweep_case(200, 700, seed=4)
+    args = [torch.from_numpy(a) for a in (dist, src, dst, mask)]
+    lay = TO.minplus_layout(args[1], args[2], 200)
+    assert torch.equal(TO.minplus_sweep(*args, layout=lay),
+                       TO.minplus_sweep(*args))
+    with pytest.raises(ValueError, match="another edge list"):
+        TO.minplus_sweep(args[0], args[2], args[1], args[3], layout=lay)

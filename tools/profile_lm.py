@@ -10,7 +10,8 @@ Prints the card's name and power limit, then per call: the host wall time
 it), the number of CUDA kernels, their summed device time, the device's
 busy share of the unprofiled wall time, the device time of ``aten::copy_``
 (the float32→bfloat16 weight casts, and the other copies), of ``aten::mm``
-and of ``selective_scan``, and the ops that take the most device time.
+and of the ``selective_scan`` kernels (prefill's and decode's; their names
+start with it) with their count, and the ops that take the most device time.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ def _profile(name: str, fn) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time for e in kernels) / 1e3
+    scans = [e for e in kernels if "selective_scan" in e.name]
     ops = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()}
     print(json.dumps({
         "call": name, "wall_ms": 1e3 * wall,
@@ -53,8 +55,8 @@ def _profile(name: str, fn) -> None:
         "device_busy_share": device_ms / (1e3 * wall),
         "copy_ms": ops.get("aten::copy_", 0.0),
         "matmul_ms": ops.get("aten::mm", 0.0),
-        "selective_scan_ms": sum(
-            e.device_time for e in kernels if "scan_kernel" in e.name) / 1e3,
+        "selective_scan_kernels": len(scans),
+        "selective_scan_ms": sum(e.device_time for e in scans) / 1e3,
     }), flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20),
           flush=True)

@@ -73,8 +73,10 @@ non-zero with no "ok" line):
               phase, and the model is freed before it.
 6. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
-              slots, arrived vertices and a live append region (gspmm at
-              F = 1, 8 and 128, add/max/mean, scalar and per-feature
+              slots, arrived vertices and a live append region
+              (segment_reduce's add also against a second call, bit for
+              bit, and its per-plan layout's build time and counts logged;
+              gspmm at F = 1, 8 and 128, add/max/mean, scalar and per-feature
               weights; masked_update scalar and at the GNN state's F=8);
               lane_cumsum on DFEP's [2·e_pad, 16] and [V, 16] 0/1 arrays
               (int32, exact) and a float32 case, frontier_min on [16, V]
@@ -127,9 +129,10 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # Tolerances, each with its reason:
-#  * segment_reduce add: the kernel sums a segment in warp-shuffle order and
-#    the append region with atomics; the plain version scatters with atomics
-#    in another order. Hub segments hold thousands of float32 terms.
+#  * segment_reduce add: the kernel sums a run in slot order, or in a
+#    warp's or a block's shuffle tree, then the target's append
+#    slots in slot order; the plain version scatters with atomics in another
+#    order. Hub runs hold thousands of float32 terms.
 SEG_ADD_RTOL = 1e-4
 #  * PageRank kernel path vs plain path on the card: the same sums in other
 #    orders, 30 supersteps; ranks are ~3e-6, so the bound is relative.
@@ -1594,6 +1597,9 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
             if fin.any() else 0.0
         if combine == "add":
             require(rel <= SEG_ADD_RTOL, f"segment_reduce add: max rel {rel}")
+            again = Kn.segment_reduce(p, msgs, combine)
+            require(torch.equal(again, got),
+                    "segment_reduce add: two calls differ")
         else:
             require(torch.equal(got, want), f"segment_reduce {combine} is "
                     "not exact")
@@ -1606,14 +1612,19 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                                   device=dev) < 0.2, float("inf"), dist)
     finite = torch.where(torch.isinf(dist), 1.0, dist) / 30
     patched = _patched_like(plan, gen)
-    errs, rels = {}, {}
+    errs, rels, layouts = {}, {}, {}
     for name, p in (("plan", plan), ("patched", patched)):
         for combine, msgs in (("min", dist), ("max", finite),
                               ("add", finite)):
             key = f"{name}.{combine}"
             errs[key], rels[key] = check_seg(p, msgs, combine)
+        # the layout (built with the plan, or at the patched plan's first
+        # call above), built again to time it
+        lay, secs = wall(lambda: Kn.build_segment_layout(p))
+        layouts[name] = dict(lay.stats(), build_s=secs)
     log({"phase": "kernels.segment_reduce.check", "max_abs_err": errs,
-         "max_rel_err": rels,
+         "max_rel_err": rels, "add_repeat_identical": True,
+         "layout": layouts,
          "append_live_slots": int((patched.emask & ~plan.emask).sum()),
          "arrived_vertices": int((patched.vmask & ~plan.vmask).sum())})
 
@@ -1700,7 +1711,11 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "plain_ms": seg_t["min"]["plain_ms"],
          "bound_ms": seg_bound, "bound_by": seg_by,
          "library_ms": seg_t["min"]["library_ms"],
-         "combine": "min", "shape": [plan.k, plan.e_max]},
+         "combine": "min", "shape": [plan.k, plan.e_max],
+         "add_ms": seg_t["add"]["kernel_ms"],
+         "add_plain_ms": seg_t["add"]["plain_ms"],
+         "add_library_ms": seg_t["add"]["library_ms"],
+         "layout": layouts["plan"]},
         {"name": "masked_update", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_update.cu",
          "replaces": "src/repro/engine/kernels.py:394",

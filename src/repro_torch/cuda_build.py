@@ -35,7 +35,7 @@ _I = ctypes.c_int
 #: C signature of each library's entry point: (function, argtypes).
 SIGNATURES = {
     "segment_reduce": ("segment_reduce_f32",
-                       [_P] * 9 + [_I] * 6 + [_P]),
+                       [_P] * 9 + [_I] * 9 + [_P]),
     "masked_update": ("masked_update_f32",
                       [_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                   _P]),

@@ -4,9 +4,13 @@ PyTorch versions.
 ``segment_reduce``
     Per-target aggregates of per-half-edge messages over the plan's
     target-sorted CSR stream (every local sweep). CUDA C++ in
-    ``csrc/segment_reduce.cu``: a segmented reduce over the CSR runs
-    (``plan.run_start`` to ``last_slot``), one thread per target and one
-    block per long (hub) run, plus a scatter of the unsorted append region.
+    ``csrc/segment_reduce.cu``: one launch over a :class:`SegmentLayout`
+    built once per plan (:func:`segment_layout`): tiles of consecutive
+    targets stage their slot window in shared memory and reduce each short
+    run there (a thread, or a warp for a longer run); longer runs are units
+    of their own (a block each); each target's
+    live append-region slots are pulled by its owner. Every target has one
+    writer, so there are no atomics and the order of a sum is fixed.
     Replaces ``repro/engine/kernels.py::segment_scan`` (``_seg_kernel``).
 
 ``gspmm``
@@ -40,6 +44,7 @@ plain indexing, not kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -52,6 +57,25 @@ from ..cuda_build import stream as _stream
 _IDENTITY = {"min": math.inf, "add": 0.0, "max": -math.inf}
 _OP_CODE = {"min": 0, "add": 1, "max": 2}
 _SCATTER = {"min": "amin", "add": "sum", "max": "amax"}
+
+#: segment_reduce's layout (:class:`SegmentLayout`). A tile owns up to
+#: SEG_TILE_TARGETS consecutive targets of one partition and stages the
+#: slot window of their runs: about SEG_TILE_SLOTS slots, plus the run
+#: that crosses its end. A run of up to SEG_THREAD slots is reduced by a
+#: thread of its tile, up to SEG_WARP by a warp of its tile, and beyond by
+#: a block of its own (a unit). A gap of more than SEG_GAP slots between
+#: two runs of a tile starts a new tile.
+#: ``csrc/segment_reduce.cu`` takes up to 2048 targets a tile; these values
+#: ran fastest of those ``tools/probe_kernels.py`` tries on the dblp plan.
+SEG_TILE_SLOTS = 2048
+SEG_TILE_TARGETS = 2048
+SEG_THREAD = 32
+SEG_WARP = 512
+SEG_GAP = 32
+#: A target's word holds its run's offset in its tile's window (the low 16
+#: bits) and the run's length above them; this length marks a target that
+#: a unit writes (``csrc/segment_reduce.cu`` kUnitLen).
+SEG_UNIT = 0x7FFF
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"segment_reduce": 0, "masked_update": 0, "gspmm": 0}
@@ -80,6 +104,170 @@ def _check_plan(plan, *names: str) -> None:
 # segment_reduce
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class SegmentLayout:
+    """Who reduces what in ``segment_reduce``, for one plan (it reads only
+    the plan's fields; messages are read per call).
+
+    Target ``t = k·Vmax + v`` of partition ``k`` has the CSR run ``[start,
+    end)``: ``end - 1 = min(last_slot, csr_fill - 1)``, ``start =
+    run_start[last_slot]``, empty where that is empty or ``!vmask``. The
+    targets fall into tiles of consecutive targets of one partition;
+    ``tiles`` row ``i`` is (first target, targets, first flat slot of the
+    window, window slots, first and end of its ``warp_targets``, first and
+    end of its ``app_slots``), a flat slot being ``k·Emax + s``. A target's
+    ``words`` entry is its run's offset in its tile's window | length <<
+    16: length 0 for an empty run (the identity), up to ``thread_max`` for
+    a thread of the tile, more for a warp of the tile (listed in
+    ``warp_targets``), SEG_UNIT for a run a unit writes and the tile
+    skips. ``units`` rows are (target, first flat slot, length, 0), by
+    falling length, each a block's. A run that does not start at or after
+    the end of every run of
+    a lower target (never in a compiled or patched plan) is a unit too.
+    The live append slots (``[csr_fill, e_max)``, ``emask``, target in
+    ``[0, Vmax)`` and ``vmask``) of target ``t`` are ``app_slots[
+    app_ptr[t]:app_ptr[t + 1]]``, flat slots by slot; ``app_ptr`` is
+    ``[0]`` when there are none. ``window_cap`` is the widest window."""
+
+    tiles: torch.Tensor         # [n_tiles, 8] int32
+    words: torch.Tensor         # [K·Vmax] int32
+    warp_targets: torch.Tensor  # [W] int32 flat targets, by tile
+    units: torch.Tensor         # [n_units, 4] int32
+    app_ptr: torch.Tensor       # [K·Vmax + 1] int32, or [1]
+    app_slots: torch.Tensor     # [A] int32 flat slots
+    window_cap: int
+    tile_targets: int
+    thread_max: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def n_units(self) -> int:
+        return int(self.units.shape[0])
+
+    @property
+    def n_append(self) -> int:
+        return int(self.app_slots.numel())
+
+    def stats(self) -> dict:
+        """Counts to log: tiles, block units, warp runs, live append
+        slots, the widest window."""
+        return {"tiles": self.n_tiles, "block_units": self.n_units,
+                "warp_runs": int(self.warp_targets.numel()),
+                "append_slots": self.n_append,
+                "window_cap": self.window_cap}
+
+
+def _ptr(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sums with the total appended: [n] -> [n + 1]."""
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+def build_segment_layout(plan) -> SegmentLayout:
+    """Build the :class:`SegmentLayout` of ``plan`` on its device, in plain
+    PyTorch (host syncs: never inside a CUDA-graph capture)."""
+    _check_plan(plan, "emask", "run_start", "edge_tgt", "last_slot", "vmask",
+                "csr_fill")
+    k, e_max, v_max = plan.k, plan.e_max, plan.v_max
+    if k * e_max >= 2**31:
+        raise ValueError("segment_reduce: K·Emax must fit in int32")
+    dev = plan.device
+    n_t = k * v_max
+    # each target's CSR run [start, end), as the scan picks it at last_slot
+    last = plan.last_slot.long()
+    hi = torch.minimum(last, plan.csr_fill.long()[:, None] - 1)
+    start = plan.run_start.long().gather(1, last.clamp(0, e_max - 1))
+    ok = plan.vmask & (hi >= 0) & (last < e_max) & (start <= hi)
+    start = torch.where(ok, start, 0)
+    end = torch.where(ok, hi + 1, 0)
+    length = end - start
+    prev_end = torch.cat([end.new_zeros(k, 1),
+                          end.cummax(dim=1).values[:, :-1]], 1)
+    staged = ok & (start >= prev_end) & (length <= SEG_WARP)
+    unit = (ok & ~staged).reshape(-1)
+    start, end, length = (x.reshape(-1) for x in (start, end, length))
+
+    # tiles: cut where a partition or a SEG_TILE_TARGETS block of targets
+    # begins, where a gap of more than SEG_GAP slots opens between two
+    # staged runs, and where the staged slots (gaps included) pass a
+    # multiple of SEG_TILE_SLOTS; a window is then at most SEG_TILE_SLOTS
+    # - 1 slots plus its first run
+    st = torch.nonzero(staged.reshape(-1)).reshape(-1)
+    s_start, s_end = start[st], end[st]
+    newseg = torch.ones(st.numel(), dtype=torch.bool, device=dev)
+    gap_end = torch.cat([s_end.new_zeros(1), s_end[:-1]])
+    newseg[1:] = (st[1:] // v_max != st[:-1] // v_max) | \
+        (s_start[1:] - gap_end[1:] > SEG_GAP)
+    cpos = torch.cumsum(torch.where(newseg, s_end - s_start,
+                                    s_end - gap_end), 0)
+    chunk = (cpos - 1) // SEG_TILE_SLOTS
+    cut_st = newseg.clone()
+    cut_st[1:] |= chunk[1:] != chunk[:-1]
+    tgt = torch.arange(n_t, device=dev)
+    cut = (tgt % v_max) % SEG_TILE_TARGETS == 0
+    cut[st[cut_st]] = True
+    tile_of = torch.cumsum(cut.long(), 0) - 1
+    t0 = torch.nonzero(cut).reshape(-1)
+    n_tiles = int(t0.numel())
+    size = torch.diff(t0, append=t0.new_full((1,), n_t))
+    lo = torch.full((n_tiles,), e_max, dtype=torch.long, device=dev)
+    lo.scatter_reduce_(0, tile_of[st], s_start, "amin")
+    win_end = torch.zeros(n_tiles, dtype=torch.long, device=dev)
+    win_end.scatter_reduce_(0, tile_of[st], s_end, "amax")
+    lo = torch.where(win_end > 0, lo // 16 * 16, 0)     # 16-slot aligned
+    win_end = torch.where(win_end > 0,
+                          torch.clamp((win_end + 15) // 16 * 16, max=e_max),
+                          0)
+
+    words = torch.zeros(n_t, dtype=torch.long, device=dev)
+    words[st] = (s_start - lo[tile_of[st]]) | (s_end - s_start) << 16
+    words[unit] = SEG_UNIT << 16
+    warp = st[s_end - s_start > SEG_THREAD]
+    warp_ptr = _ptr(torch.bincount(tile_of[warp], minlength=n_tiles))
+
+    # the live append slots, by (target, slot)
+    slot = torch.arange(e_max, device=dev)[None, :]
+    a_tgt = plan.edge_tgt.long()
+    live = plan.emask & (slot >= plan.csr_fill.long()[:, None]) \
+        & (a_tgt >= 0) & (a_tgt < v_max)
+    live &= plan.vmask.gather(1, a_tgt.clamp(0, v_max - 1))
+    ak, a_s = torch.nonzero(live, as_tuple=True)
+    a_flat = ak * v_max + a_tgt[ak, a_s]
+    order = torch.argsort(a_flat * e_max + a_s)
+    app_slots = (ak * e_max + a_s)[order]
+    if app_slots.numel():
+        app_ptr = _ptr(torch.bincount(a_flat, minlength=n_t))
+        app_first, app_end = app_ptr[t0], app_ptr[t0 + size]
+    else:
+        app_ptr = torch.zeros(1, dtype=torch.long, device=dev)
+        app_first = app_end = torch.zeros_like(t0)
+
+    # units: by falling length, then target
+    uf = torch.nonzero(unit).reshape(-1)
+    uf = uf[torch.argsort((e_max - length[uf]) * n_t + uf)]
+    u_len = length[uf]
+    i32 = torch.int32
+    tiles = torch.stack([t0, size, (t0 // v_max) * e_max + lo, win_end - lo,
+                         warp_ptr[:-1], warp_ptr[1:], app_first, app_end], 1)
+    units = torch.stack([uf, (uf // v_max) * e_max + start[uf], u_len,
+                         torch.zeros_like(uf)], 1)
+    return SegmentLayout(
+        tiles.to(i32).contiguous(), words.to(i32), warp.to(i32),
+        units.to(i32).contiguous(), app_ptr.to(i32), app_slots.to(i32),
+        int((win_end - lo).max()) if n_tiles else 0,
+        int(size.max()) if n_tiles else 0, SEG_THREAD)
+
+
+def segment_layout(plan) -> SegmentLayout:
+    """The plan's :class:`SegmentLayout`, built once and kept on the plan:
+    a plan made on the card (``compile_plan``, ``plan_from_numpy``) builds
+    it then, any other (a ``dataclasses.replace``d plan) at its first
+    call."""
+    return plan._memo("_segment_layout", lambda: build_segment_layout(plan))
+
+
 def segment_reduce(plan, messages: torch.Tensor,
                    combine: str = "min") -> torch.Tensor:
     """Per-target aggregates over the plan's CSR stream.
@@ -88,7 +276,9 @@ def segment_reduce(plan, messages: torch.Tensor,
     [K, Vmax, F] (identity at padding vertices). Masked slots, and CSR
     slots at or past ``csr_fill``, are the combine identity; live slots of
     the append region ``[csr_fill, e_max)`` are combined into their target
-    on top. CUDA tensors launch the kernel; CPU tensors run
+    on top. CUDA tensors launch the kernel over the plan's
+    :func:`segment_layout` (on a plan not made on the card, built at its
+    first call: do that outside any CUDA-graph capture); CPU tensors run
     :func:`segment_reduce_ref`.
     """
     if not _on_card(messages, plan.emask):
@@ -98,19 +288,19 @@ def segment_reduce(plan, messages: torch.Tensor,
     f = 1 if squeeze else int(messages.shape[2])
     _check(messages, "messages", torch.float32,
            (k, e_max) if squeeze else (k, e_max, f))
-    _check_plan(plan, "emask", "run_start", "edge_tgt", "last_slot", "vmask",
-                "csr_fill")
+    _check_plan(plan, "emask")
+    lay = segment_layout(plan)
     out = torch.empty((k, v_max, f), dtype=torch.float32,
                       device=messages.device)
-    # scratch: a count, then the targets whose CSR run is long (hubs)
-    work = torch.empty(1 + k * v_max, dtype=torch.int32,
-                       device=messages.device)
+    vec = 4 if (e_max * f) % 4 == 0 and messages.data_ptr() % 16 == 0 \
+        and plan.emask.data_ptr() % 4 == 0 else 1
     fn = cuda_build.entry("segment_reduce")
-    ptrs = [t.data_ptr() for t in (messages, plan.emask, plan.run_start,
-                                   plan.last_slot, plan.vmask, plan.edge_tgt,
-                                   plan.csr_fill, out, work)]
-    rc = fn(*ptrs, k, e_max, v_max, f,
-            plan.csr_fill_min, _OP_CODE[combine], _stream())
+    ptrs = [t.data_ptr() for t in (messages, plan.emask, out, lay.tiles,
+                                   lay.words, lay.warp_targets, lay.units,
+                                   lay.app_ptr, lay.app_slots)]
+    rc = fn(*ptrs, lay.n_tiles, lay.n_units, lay.window_cap,
+            lay.tile_targets, lay.thread_max, lay.n_append, f,
+            _OP_CODE[combine], vec, _stream())
     if rc != 0:
         raise RuntimeError(f"segment_reduce kernel launch failed: CUDA "
                            f"error {rc}")

@@ -24,7 +24,9 @@ e_max)`` is the unsorted append region that the kernels fold in by scatter.
 Index fields stay int32 like the reference's. The runtime needs int64
 indices for gathers and scatters; :meth:`PartitionPlan.index64` widens a
 field once per plan and keeps the result, as :attr:`PartitionPlan.run_start`
-keeps each slot's run start for the kernels.
+keeps each slot's run start for the kernels and
+``engine.kernels.segment_layout`` keeps ``segment_reduce``'s layout (built
+with the plan when the plan is made on the card, so no query pays it).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.graph import Graph, edge_weights, resolve_device
+from .kernels import segment_layout
 
 #: The 16 tensor fields, in the reference's order.
 TENSOR_FIELDS = ("local2global", "vmask", "edge_tgt", "edge_nbr", "emask",
@@ -118,8 +121,9 @@ class PartitionPlan:
     def run_start(self) -> torch.Tensor:
         """[K, Emax] int32: the nearest slot at or before each slot with
         ``seg_start`` set (0 if none), i.e. where the run through that slot
-        begins. The kernels read a target's run as ``[run_start[last_slot],
-        last_slot]`` instead of searching back for its start."""
+        begins. ``gspmm`` reads a target's run as ``[run_start[last_slot],
+        last_slot]`` instead of searching back for its start, and
+        ``segment_reduce``'s layout is built from it."""
         def make():
             slot = torch.arange(self.e_max, dtype=torch.int32,
                                 device=self.device)
@@ -266,7 +270,8 @@ def compile_plan(g: Graph, owner, k: int, *, edge_slack: int = 0,
 def plan_from_numpy(ref, device=None) -> PartitionPlan:
     """Build a plan from the 22 fields, given as a mapping or as attributes
     of any object (e.g. a reference ``repro.engine.plan.PartitionPlan``);
-    arrays are anything ``np.asarray`` converts."""
+    arrays are anything ``np.asarray`` converts. On the card the plan's
+    ``segment_reduce`` layout is built here too."""
     dev = resolve_device(device)
 
     def get(name):
@@ -275,4 +280,7 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
     static = {f: int(get(f)) for f in STATIC_FIELDS}
     tensors = {f: torch.from_numpy(np.array(get(f))).to(dev)
                for f in TENSOR_FIELDS}
-    return PartitionPlan(**static, **tensors)
+    plan = PartitionPlan(**static, **tensors)
+    if plan.device.type == "cuda":
+        segment_layout(plan)
+    return plan

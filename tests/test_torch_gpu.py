@@ -20,6 +20,9 @@ from repro_torch.engine import kernels as TK
 
 COMBINES = ("min", "max", "add")
 ADD_ATOL = 1e-5
+#: segment_reduce add on a hub's run: ~1,500 float32 terms summed in a
+#: block's shuffle tree against the plain version's atomic order.
+HUB_ADD_RTOL = 1e-5
 
 
 def _card() -> str:
@@ -69,8 +72,8 @@ def _plans(dev: str) -> dict:
 
 def _hub_plan(dev: str, leaves: int = 3000):
     """A star of ``leaves`` leaves on a ring, split in two partitions: the
-    hub's run in each is ~10^3 slots, which the kernels hand to their
-    long-run (block per hub) paths."""
+    hub's run in each is ~leaves / 2 slots, which the kernels hand to their
+    long-run (block per run) paths."""
     n = leaves + 1
     star = np.stack([np.zeros(leaves, np.int64), np.arange(1, n)], 1)
     ring = np.stack([np.arange(1, n), np.arange(2, n + 1) % n], 1)
@@ -82,13 +85,22 @@ def _hub_plan(dev: str, leaves: int = 3000):
 
 @pytest.mark.gpu
 def test_segment_reduce_matches_plain_on_card():
-    """min/max exact, add within 1e-5 (another summation order, on
-    rank/degree-sized messages like PageRank's); one launch per call;
-    fresh and patched plans, scalar and F=3 messages."""
+    """min/max exact; add within 1e-5 absolute on rank/degree-sized
+    messages like PageRank's (another summation order), and on the hub
+    plan, whose ~1,500-term sums pass that, within HUB_ADD_RTOL; two add
+    calls give the same bits; one launch per call; fresh and patched
+    plans and a hub plan whose run goes to a block of its own; scalar,
+    F=3 and F=64 messages (at F=64 the tiles read their windows from
+    device memory: they do not fit in shared memory). A call runs one
+    CUDA kernel and allocates its output and nothing else: the layout was
+    built with the plan."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
-    for name, plan in _plans(dev).items():
-        for features in (1, 3):
+    plans = dict(_plans(dev), hub=_hub_plan(dev))
+    assert "_segment_layout" in plans["hub"].__dict__
+    assert TK.segment_layout(plans["hub"]).n_units > 0
+    for name, plan in plans.items():
+        for features in (1, 3, 64):
             shape = tuple(plan.emask.shape) + ((features,) if features > 1
                                                else ())
             m = torch.rand(shape, generator=gen, device=dev)
@@ -102,10 +114,29 @@ def test_segment_reduce_matches_plain_on_card():
                 torch.cuda.synchronize()
                 assert TK.LAUNCHES["segment_reduce"] == before + 1
                 if combine == "add":
-                    torch.testing.assert_close(got, want, rtol=0,
-                                               atol=ADD_ATOL)
+                    rtol, atol = (HUB_ADD_RTOL, 0.0) if name == "hub" \
+                        else (0.0, ADD_ATOL)
+                    torch.testing.assert_close(got, want, rtol=rtol,
+                                               atol=atol)
+                    assert torch.equal(
+                        TK.segment_reduce(plan, msgs, combine), got), name
                 else:
                     assert torch.equal(got, want), (name, features, combine)
+    plan = plans["hub"]
+    msgs = torch.rand(tuple(plan.emask.shape), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    TK.segment_reduce(plan, msgs, "add")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs + 1                                   # the output alone
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        TK.segment_reduce(plan, msgs, "add")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "seg_kernel" in kernels[0], kernels
 
 
 @pytest.mark.gpu

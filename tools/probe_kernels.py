@@ -1,10 +1,19 @@
-"""Time the design choices of minplus_sweep and selective_scan on one GPU,
-and, with ``--parent``, the kernels they replaced, in the same process.
+"""Time the design choices of segment_reduce, minplus_sweep and
+selective_scan on one GPU, and, with ``--parent``, the kernels they
+replaced, in the same process.
 
-    python3 tools/probe_kernels.py [--parent DIR]
+    python3 tools/probe_kernels.py [--parent DIR] [--only NAME,...]
 
-minplus_sweep: on dblp 1.0 partitioned by DFEP (K = 16, 4000 rounds, as
-``chip_smoke.py``'s main phase), ETSCH's flat [K·V] state (~20% +inf,
+segment_reduce: on the main path's plan (dblp 1.0 partitioned by DFEP, K =
+16, 4000 rounds, as ``chip_smoke.py``'s main phase), min over SSSP-like
+messages (~20% +inf) and add over finite ones, held to the plain version
+(min exact, add within ``chip_smoke.SEG_ADD_RTOL``), timed with the plan's
+layout and with layouts built under each of SEG_VARIANTS (other tile sizes
+and run-kind thresholds), and, to show where the time goes, with parts of
+the layout taken away (only the tiles; only the units; every block
+launched with nothing to do) beside one empty kernel's launch; the
+layout's build (which ``compile_plan`` makes on the card) is timed again.
+minplus_sweep: on the same partition, ETSCH's flat [K·V] state (~20% +inf,
 ~5% of the live edges masked out), the whole graph's [V] state,
 multi-source SSSP's [K·8·V] state, and usroads 1.0 partitioned the same
 way (the flat shape of most ETSCH sweeps in ``chip_smoke.py``); each
@@ -17,13 +26,15 @@ selective_scan: the falcon-mamba-7b prefill shape [4, 512, 8192, 16] from a
 zero state and S = 1 from a random one, inputs drawn as ``chip_smoke.py``
 draws them, held to ``chip_smoke.SCAN_REL`` of the plain loop.
 
-``--parent DIR`` names a checkout of the commit before the redesign: its
-``csrc/minplus_sweep.cu`` (a copy and an atomic scatter over
-[K·S·e_max] index arrays) and ``csrc/selective_scan.cu`` (a thread per
-state element) are built with nvcc into ``build/parent/`` and called
-through their own C entry points, timed in the order parent, new, new,
-parent. Device times are CUDA-graph replays (``chip_smoke.device_ms``).
-One JSON object per line; the card's name and power limit first.
+``--parent DIR`` names a checkout of the commit before a redesign: its
+``csrc/segment_reduce.cu`` (a memset, a thread per target, a block per
+listed hub, an atomic append scatter), ``csrc/minplus_sweep.cu`` and
+``csrc/selective_scan.cu`` are built with nvcc into ``build/parent/`` and
+called through their own C entry points, timed in the order parent, new,
+new, parent; the parent's segment_reduce also on one target and one append
+slot (its four device operations with almost no work). Device times are
+CUDA-graph replays (``chip_smoke.device_ms``). One JSON object per line;
+the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -55,29 +66,61 @@ VARIANTS = {
     "hub_2048": {"MINPLUS_HUB": 2048},
     "hub_16384": {"MINPLUS_HUB": 16384},
 }
-#: The replaced kernels' C entry points: (symbol, argtypes).
+#: segment_reduce layout settings tried beside the defaults: label ->
+#: engine.kernels constants.
+SEG_VARIANTS = {
+    **{f"slots_{t}": {"SEG_TILE_SLOTS": t} for t in (1024, 1536, 3072)},
+    "targets_1024": {"SEG_TILE_TARGETS": 1024},
+    **{f"thread_{t}": {"SEG_THREAD": t} for t in (16, 64)},
+    **{f"warp_{t}": {"SEG_WARP": t} for t in (256, 1024)},
+    **{f"gap_{t}": {"SEG_GAP": t} for t in (8, 128)},
+}
+#: The replaced kernels' C entry points: (symbol, argtypes). Those of
+#: minplus_sweep and selective_scan are the ones before their redesign:
+#: ``--parent`` with those probes takes a checkout from before it.
 PARENT = {
+    "segment_reduce": ("segment_reduce_f32", [_P] * 9 + [_I] * 6 + [_P]),
     "minplus_sweep": ("minplus_sweep_f32",
                       [_P] * 5 + [_L, _L, ctypes.c_float, _P]),
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
 }
 
 
-def _parent_entries(parent: Path) -> dict:
-    from repro_torch import cuda_build
+def _parent_entries(parent: Path, names) -> dict:
+    """The named kernels of PARENT, built from the checkout ``parent``."""
     out_dir = ROOT / "build" / "parent"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build.find_nvcc()
     fns = {}
-    for name, (symbol, argtypes) in PARENT.items():
+    for name in names:
+        symbol, argtypes = PARENT[name]
         lib = out_dir / f"{name}.so"
-        subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                        str(parent / "src/repro_torch/csrc" / f"{name}.cu")],
-                       check=True, capture_output=True, text=True)
+        _nvcc(parent / "src/repro_torch/csrc" / f"{name}.cu", lib)
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def _nvcc(source: Path, lib: Path) -> None:
+    from repro_torch import cuda_build
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                    "-o", str(lib), str(source)],
+                   check=True, capture_output=True, text=True)
+
+
+def _empty_kernel():
+    """A kernel of one block that does nothing: one launch's floor."""
+    src = ROOT / "build" / "probe" / "empty.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text('__global__ void empty_kernel() {}\n'
+                   'extern "C" int empty_launch(void* stream) {\n'
+                   '  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();\n'
+                   '  return (int)cudaGetLastError();\n}\n')
+    lib = src.with_suffix(".so")
+    _nvcc(src, lib)
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes, fn.restype = [_P], ctypes.c_int
+    return fn
 
 
 def _in_turns(parent_fn, new_fn) -> dict:
@@ -87,12 +130,113 @@ def _in_turns(parent_fn, new_fn) -> dict:
     return {"parent_ms": [p1, p2], "new_ms": [n1, n2]}
 
 
-def probe_minplus(gen, parent) -> None:
+def _seg_launch(fn, plan, msgs, combine, lay, out):
+    """One call of a segment_reduce C entry over ``lay``, as the wrapper
+    makes it (``engine.kernels.segment_reduce``)."""
+    from repro_torch.engine import kernels as Kn
+    f = 1 if msgs.ndim == 2 else int(msgs.shape[2])
+    vec = 4 if (plan.e_max * f) % 4 == 0 and msgs.data_ptr() % 16 == 0 \
+        and plan.emask.data_ptr() % 4 == 0 else 1
+    rc = fn(*[t.data_ptr() for t in (msgs, plan.emask, out, lay.tiles,
+                                     lay.words, lay.warp_targets, lay.units,
+                                     lay.app_ptr, lay.app_slots)],
+            lay.n_tiles, lay.n_units, lay.window_cap, lay.tile_targets,
+            lay.thread_max, lay.n_append, f, Kn._OP_CODE[combine], vec,
+            torch.cuda.current_stream().cuda_stream)
+    C.require(rc == 0, f"segment_reduce: CUDA error {rc}")
+    return out
+
+
+def probe_segment(g, owner, gen, parent) -> None:
+    from repro_torch import cuda_build
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels as Kn
+    plan = E.compile_plan(g, owner, C.K)
+    dev = plan.device
+    dist = torch.rand(plan.emask.shape, generator=gen, device=dev) * 30
+    dist = torch.where(torch.rand(plan.emask.shape, generator=gen,
+                                  device=dev) < 0.2, float("inf"), dist)
+    finite = torch.where(torch.isinf(dist), 1.0, dist) / 30
+    base = Kn.segment_layout(plan)
+    row = {"phase": "probe.segment_reduce", "layout": base.stats(),
+           "longest_units": base.units[:8, 2].tolist(),
+           "layout_build_s": C.wall(
+               lambda: Kn.build_segment_layout(plan))[1],
+           "bound_ms": C._seg_bound(plan)[0]}
+    new = cuda_build.entry("segment_reduce")
+    out = torch.empty((plan.k, plan.v_max, 1), device=dev)
+    variants = {label: {} for label in SEG_VARIANTS}
+    for label, setting in SEG_VARIANTS.items():
+        saved = {key: getattr(Kn, key) for key in setting}
+        for key, value in setting.items():
+            setattr(Kn, key, value)
+        variants[label] = Kn.build_segment_layout(plan)
+        for key, value in saved.items():
+            setattr(Kn, key, value)
+    for combine, m in (("min", dist), ("add", finite)):
+        want = Kn.segment_reduce_ref(plan, m, combine)
+
+        def held(got, what):
+            if combine == "min":
+                C.require(torch.equal(got, want), f"{what} min not exact")
+            else:
+                rel = float(((got - want).abs()
+                             / want.abs().clamp(min=1e-30)).max())
+                C.require(rel <= C.SEG_ADD_RTOL, f"{what} add: {rel}")
+        held(Kn.segment_reduce(plan, m, combine), "segment_reduce")
+        row[f"{combine}_ms"] = C.device_ms(
+            lambda: Kn.segment_reduce(plan, m, combine))
+        for label, lay in variants.items():
+            held(_seg_launch(new, plan, m, combine, lay, out)[:, :, 0],
+                 label)
+            row[f"{combine}_{label}_ms"] = C.device_ms(
+                lambda: _seg_launch(new, plan, m, combine, lay, out))
+        if parent is not None:
+            old_fn = parent["segment_reduce"]
+            work = torch.empty(1 + plan.k * plan.v_max, dtype=torch.int32,
+                               device=dev)
+            old_out = torch.empty_like(out)
+
+            def old(k=plan.k, v=plan.v_max, lo=plan.csr_fill_min):
+                rc = old_fn(*[t.data_ptr() for t in (
+                    m, plan.emask, plan.run_start, plan.last_slot,
+                    plan.vmask, plan.edge_tgt, plan.csr_fill, old_out,
+                    work)], k, plan.e_max, v, 1, lo, Kn._OP_CODE[combine],
+                    torch.cuda.current_stream().cuda_stream)
+                C.require(rc == 0, f"parent segment_reduce: CUDA error {rc}")
+                return old_out
+            old()
+            held(old_out[:, :, 0], "parent segment_reduce")
+            row[f"{combine}_turns"] = _in_turns(old, lambda: Kn.segment_reduce(
+                plan, m, combine))
+            if combine == "min":
+                row["parent_chain_ms"] = C.device_ms(
+                    lambda: old(k=1, v=1, lo=plan.e_max - 1))
+    # where the time goes (min; timing only: those outputs are not whole)
+    idle = base.tiles.clone()
+    idle[:, [1, 3, 4, 5, 6, 7]] = 0
+    parts = {"tiles_only": dataclasses.replace(base,
+                                               units=base.units[:0]),
+             "units_only": dataclasses.replace(base, tiles=base.tiles[:0]),
+             "idle": dataclasses.replace(
+                 base, tiles=idle, units=base.units * torch.tensor(
+                     [1, 1, 0, 0], dtype=torch.int32, device=dev),
+                 app_slots=base.app_slots[:0])}
+    for label, lay in parts.items():
+        row[f"{label}_ms"] = C.device_ms(
+            lambda: _seg_launch(new, plan, dist, "min", lay, out))
+    empty = _empty_kernel()
+    stream = torch.cuda.current_stream
+
+    def empty_call():
+        C.require(empty(stream().cuda_stream) == 0, "empty kernel")
+    row["empty_kernel_ms"] = C.device_ms(empty_call)
+    C.log(row)
+
+
+def probe_minplus(g, owner, gen, parent) -> None:
     from repro_torch.core import dfep, etsch, graph
     from repro_torch.kernels import ops, ref
-    g = graph.load_dataset("dblp", scale=C.DBLP_SCALE, seed=C.SEED)
-    owner, _ = dfep.partition(g, k=C.K, seed=C.SEED, max_rounds=4000,
-                              stall_rounds=64)
     part = etsch.compile_partitioning(g, owner, C.K)
     road = graph.load_dataset("usroads", scale=1.0, seed=C.SEED)
     road_owner, _ = dfep.partition(road, k=C.K, seed=C.SEED,
@@ -217,16 +361,33 @@ def probe_scan(gen, parent) -> None:
         C.log(row)
 
 
+PROBES = ("segment_reduce", "selective_scan", "minplus_sweep")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--only", default=",".join(PROBES),
+                    help=f"comma-separated subset of {PROBES}")
     args = ap.parse_args()
+    only = args.only.split(",")
+    C.require(set(only) <= set(PROBES), f"--only takes {PROBES}")
     card = C.phase_device()
     print(card, flush=True)
-    parent = None if args.parent is None else _parent_entries(args.parent)
+    parent = None if args.parent is None else _parent_entries(
+        args.parent, [name for name in only if name in PARENT])
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
-    probe_scan(gen, parent)
-    probe_minplus(gen, parent)
+    if "selective_scan" in only:
+        probe_scan(gen, parent)
+    if {"segment_reduce", "minplus_sweep"} & set(only):
+        from repro_torch.core import dfep, graph
+        g = graph.load_dataset("dblp", scale=C.DBLP_SCALE, seed=C.SEED)
+        owner, _ = dfep.partition(g, k=C.K, seed=C.SEED, max_rounds=4000,
+                                  stall_rounds=64)
+        if "segment_reduce" in only:
+            probe_segment(g, owner, gen, parent)
+        if "minplus_sweep" in only:
+            probe_minplus(g, owner, gen, parent)
     print(json.dumps({"ok": True}), flush=True)
     return 0
 

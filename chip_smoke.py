@@ -77,7 +77,8 @@ non-zero with no "ok" line):
               (segment_reduce's add also against a second call, bit for
               bit, and its per-plan layout's build time and counts logged;
               gspmm at F = 1, 8 and 128, add/max/mean, scalar and per-feature
-              weights; masked_update scalar and at the GNN state's F=8);
+              weights, add also against a second call, bit for bit;
+              masked_update scalar and at the GNN state's F=8);
               lane_cumsum on DFEP's [2·e_pad, 16] and [V, 16] 0/1 arrays
               (int32, exact) and a float32 case, frontier_min on [16, V]
               with the real member mask and at multi-source SSSP's
@@ -92,8 +93,10 @@ non-zero with no "ok" line):
               time logged); then timed: device time from CUDA-graph replays
               (``ms``, ``plain_ms``, ``library_ms``) and eager back-to-back
               calls with their host launch cost (``*_eager_ms``), gspmm
-              also with only its largest hub run live and with no live slot
-              (the difference is the hub run's time); prints one
+              at F = 8 and 128 with scalar weights and at kge_score's F = 8
+              with per-feature weights, also with only its largest hub run
+              live and with no live slot (the difference is the hub run's
+              time); prints one
               ``{"kernels": [...]}`` line. selective_scan is held against
               its plain loop (y and h_last within SCAN_REL) on seeded
               inputs at the prefill shape with a zero and a random h0, at
@@ -140,9 +143,10 @@ PR_PLAIN_RTOL = 1e-4
 #  * PageRank vs a float64 numpy oracle: float32 accumulation over 30 steps.
 PR_ORACLE_RTOL = 1e-3
 #  * gspmm add/mean vs plain, on non-negative features and weights: the
-#    kernel sums a run in slot order, or hub runs as block partials combined
-#    by atomics; the plain version scatters with atomics in another order.
-#    Hub runs hold ~10^5 float32 terms.
+#    kernel sums a run in slot order over a tile's lane groups, or a hub's
+#    chunks in a fixed tree and then in chunk order; the plain version
+#    scatters with atomics in another order. Hub runs hold ~10^4 float32
+#    terms.
 GSPMM_ADD_RTOL = 1e-4
 #    PPR is held element by element to PR_PLAIN_RTOL / PR_ORACLE_RTOL, as
 #    PageRank is: its ranks are positive and ~3e-6 on average, so a bound
@@ -1044,20 +1048,23 @@ def _mu_bound(plan, f: int = 1) -> tuple[float, str]:
     return _bound(nbytes, 0)
 
 
-def _gspmm_bound(plan, f: int) -> tuple[float, str]:
-    """Least time for gspmm with scalar weights on this plan: per live
-    half-edge its neighbour index and its weight; per slot the two masks;
-    per target ``last_slot`` and ``vmask``; per live append slot its target;
-    each distinct live feature row read once; each output row written once.
-    Operations: a multiply and a combine per feature per live half-edge."""
+def _gspmm_bound(plan, f: int, per_feature: bool = False
+                 ) -> tuple[float, str]:
+    """Least time for gspmm on this plan: per live half-edge its neighbour
+    index and its weight (4·F bytes of them with per-feature weights); per
+    slot the two masks; per target ``last_slot`` and ``vmask``; per live
+    append slot its target; each distinct live feature row read once; each
+    output row written once. Operations: a multiply and a combine per
+    feature per live half-edge."""
     kv, ke = plan.k * plan.v_max, plan.k * plan.e_max
     live = int(plan.emask.sum())
     slot = torch.arange(plan.e_max, device=plan.device)[None, :]
     append_live = int((plan.emask & (slot >= plan.csr_fill[:, None])).sum())
     base = torch.arange(plan.k, device=plan.device)[:, None] * plan.v_max
     rows = int(torch.unique((base + plan.edge_nbr.long())[plan.emask]).numel())
-    nbytes = (8 * live + 2 * ke + 5 * kv + 4 * plan.k + 4 * append_live
-              + 4 * f * rows + 4 * f * kv)
+    weight = 4 * f if per_feature else 4
+    nbytes = ((4 + weight) * live + 2 * ke + 5 * kv + 4 * plan.k
+              + 4 * append_live + 4 * f * rows + 4 * f * kv)
     return _bound(nbytes, 2 * f * live)
 
 
@@ -1077,7 +1084,10 @@ def _spmm_matrix(plan):
 
 def _hub_split(plan):
     """(the target with the longest run, the plan with only that run live,
-    the plan with no live slot)."""
+    the plan with no live slot). The two plans are ``dataclasses.replace``d,
+    so each builds its kernels' layouts at its first call, which must not be
+    inside a CUDA-graph capture: ``device_ms`` makes that call while it
+    warms up, on a side stream, before it captures."""
     base = torch.arange(plan.k, device=plan.device)[:, None] * plan.v_max
     tgt = base + plan.edge_tgt.long()
     runs = torch.zeros(plan.k * plan.v_max, device=plan.device)
@@ -1124,48 +1134,66 @@ def _gspmm_checks(Kn, plan, patched, gen):
                     if combine != "max":
                         require(rels[key] <= GSPMM_ADD_RTOL,
                                 f"gspmm {key}: max rel {rels[key]}")
+                    if combine == "add":
+                        require(torch.equal(Kn.gspmm(p, feats, w, combine),
+                                            got),
+                                f"gspmm {key}: two calls differ")
         del feats, wide
     log({"phase": "kernels.gspmm.check", "max_abs_err": errs,
-         "max_rel_err": rels})
+         "max_rel_err": rels, "add_repeat_identical": True})
     return errs
 
 
 def _gspmm_timing(Kn, plan, gen, times):
-    """gspmm with scalar weights and add at the widths in GSPMM_WIDTHS:
-    kernel, plain and ``torch.sparse.mm`` device and eager times, the
-    bound, and the largest hub run's own time: the kernel with only that
-    run live less the kernel with no live slot (both still visit every
-    target), measured HUB_REPEATS times interleaved, the median of the
-    differences kept and the spread reported."""
+    """gspmm with add at the widths in GSPMM_WIDTHS with scalar weights,
+    and at kge_score's F = 8 with per-feature weights (``feature_f8``):
+    kernel, plain and (scalar weights) ``torch.sparse.mm`` device and eager
+    times, the bound, and the largest hub run's own time: the kernel with
+    only that run live less the kernel with no live slot (both still walk
+    every target), measured HUB_REPEATS times interleaved, the median of
+    the differences kept and the spread reported."""
     dev = plan.device
     a = _spmm_matrix(plan)
     hub, hub_only, empty = _hub_split(plan)
     out = {"largest_hub": hub}
-    for f in GSPMM_WIDTHS:
+    cases = [(f"f{f}", f, False) for f in GSPMM_WIDTHS] + \
+        [("feature_f8", 8, True)]
+    for name, f, per_feature in cases:
         feats = torch.rand((plan.k, plan.v_max, f), generator=gen,
                            device=dev)
-        dense = feats.view(plan.k * plan.v_max, f)
-        lib = torch.sparse.mm(a, dense).view(plan.k, plan.v_max, f)
-        got = Kn.gspmm(plan, feats, plan.edge_w, "add")
-        lib_rel = float(((lib - got).abs()
-                         / got.abs().clamp(min=1e-30)).max())
+        wide = torch.rand(tuple(plan.emask.shape) + (f,), generator=gen,
+                          device=dev) if per_feature else None
+
+        def call(p, fn=Kn.gspmm):
+            w = wide if per_feature else p.edge_w
+            return lambda: fn(p, feats, w, "add")
+        fns = {"kernel": call(plan), "plain": call(plan, Kn.gspmm_ref)}
+        t = {}
+        if not per_feature:
+            dense = feats.view(plan.k * plan.v_max, f)
+            lib = torch.sparse.mm(a, dense).view(plan.k, plan.v_max, f)
+            got = Kn.gspmm(plan, feats, plan.edge_w, "add")
+            t["library_max_rel_vs_kernel"] = float(
+                ((lib - got).abs() / got.abs().clamp(min=1e-30)).max())
+            fns["library"] = lambda: torch.sparse.mm(a, dense)
+            del lib, got
         iters = 20 if f <= 8 else 5
-        t = times(iters=iters,
-                  kernel=lambda: Kn.gspmm(plan, feats, plan.edge_w, "add"),
-                  plain=lambda: Kn.gspmm_ref(plan, feats, plan.edge_w, "add"),
-                  library=lambda: torch.sparse.mm(a, dense))
-        pairs = [(device_ms(lambda: Kn.gspmm(hub_only, feats,
-                                             hub_only.edge_w, "add")),
-                  device_ms(lambda: Kn.gspmm(empty, feats, empty.edge_w,
-                                             "add")))
+        t.update(times(iters=iters, **fns))
+        pairs = [(device_ms(call(hub_only)), device_ms(call(empty)))
                  for _ in range(HUB_REPEATS)]
         t["hub_only_ms"] = [h for h, _ in pairs]
         t["empty_ms"] = [e for _, e in pairs]
         t["hub_run_ms"] = float(np.median([h - e for h, e in pairs]))
-        t["bound_ms"], t["bound_by"] = _gspmm_bound(plan, f)
-        t["library_max_rel_vs_kernel"] = lib_rel
-        out[f"f{f}"] = t
-        del feats, dense, lib, got
+        t["bound_ms"], t["bound_by"] = _gspmm_bound(plan, f, per_feature)
+        out[name] = t
+        del feats, fns, wide
+    lay = Kn.gspmm_layout(plan)
+    out["layout"] = {"chunk_slots": lay.chunk_slots, "chunks": lay.n_chunks,
+                     "units": lay.seg.n_units,
+                     "split_units": int(torch.unique(
+                         lay.chunks[lay.chunks[:, 5] > 1, 3]).numel()),
+                     "build_s": wall(lambda: Kn.build_gspmm_layout(
+                         plan, lay.seg))[1]}
     log({"phase": "kernels.gspmm.timing", **out})
     return out
 
@@ -1736,10 +1764,14 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "bound_by": gs_t["f8"]["bound_by"],
          "library_ms": gs_t["f8"]["library_ms"],
          "combine": "add", "shape": [plan.k, plan.e_max, 8],
-         "f128": {k: gs_t["f128"][k] for k in (
-             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "hub_run_ms")},
-         "hub_run_ms_f8": gs_t["f8"]["hub_run_ms"]},
+         "empty_ms": float(np.median(gs_t["f8"]["empty_ms"])),
+         "hub_run_ms": gs_t["f8"]["hub_run_ms"],
+         **{name: dict({k: gs_t[name][k] for k in (
+             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "hub_run_ms")},
+             library_ms=gs_t[name].get("library_ms"),
+             empty_ms=float(np.median(gs_t[name]["empty_ms"])))
+            for name in ("f128", "feature_f8")},
+         "layout": gs_t["layout"]},
         {"name": "lane_cumsum", "route": "cuda",
          "source": "src/repro_torch/csrc/lane_cumsum.cu",
          "replaces": "src/repro/kernels/lane_cumsum.py:24",

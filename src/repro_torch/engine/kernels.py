@@ -16,12 +16,17 @@ PyTorch versions.
 ``gspmm``
     The GNN sweep (DGL's ``u_mul_e_{sum,max,mean}``): gather neighbour
     feature rows, multiply by per-half-edge weights (scalar or per
-    feature), combine per target. CUDA C++ in ``csrc/gspmm.cu``: a lane
-    group over F per target, hub runs cut into chunks of a block each whose
-    partial rows combine into the target by atomics, plus the append
-    region.
-    ``mean`` is the add result over the live degree, which
-    ``segment_reduce`` counts. Replaces
+    feature), combine per target. CUDA C++ in ``csrc/gspmm.cu``: one
+    launch over the same :class:`SegmentLayout` and a :class:`GspmmLayout`
+    of it (:func:`gspmm_layout`, built once per plan): a tile block stages
+    its window's row indices, weights and slot targets and splits the
+    window's slots evenly over lane groups that gather several rows at
+    once, runs crossing a group's end finished with the next groups'
+    partials; longer runs are cut into chunks of a block each, whose
+    partial rows the last chunk to arrive combines in order; each target's
+    append slots are pulled by its writer. No atomic touches a value, so
+    the order of a sum is fixed. ``mean`` is the add result over the live
+    degree, which ``segment_reduce`` counts. Replaces
     ``repro/engine/kernels.py::_gspmm_scan`` (``_gspmm_kernel``), wrapped
     there by ``gspmm``.
 
@@ -341,6 +346,115 @@ def _mean(plan, total: torch.Tensor, count_fn) -> torch.Tensor:
     return total / count_fn(plan, ones, "add").clamp(min=1.0)[:, :, None]
 
 
+#: gspmm's units: a run too long for a tile (a SegmentLayout unit) is cut
+#: into chunks of up to GS_CHUNK slots, a block each.
+GS_CHUNK = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class GspmmLayout:
+    """``gspmm``'s reading of a plan: its :class:`SegmentLayout` (tiles,
+    words, append slots), each slot's target and the units cut into
+    chunks.
+
+    ``slot_targets`` [K·Emax] int32 gives each slot of a run a tile stages
+    (a thread's or a warp's) that run's target ``k·Vmax + v``, and -1 to
+    every other slot (a tile's window, 16-slot aligned, may reach into its
+    neighbours' runs: the kernel keeps only its own targets).
+
+    ``chunks`` row ``b`` is (target, first flat slot, slots, unit), then
+    (first chunk of the unit, chunks of the unit, 0, 0): the unit's chunks
+    are consecutive rows, longest unit first, ``chunk_slots`` slots each
+    but the last. A unit of more than one chunk has a partial row per chunk
+    and an arrival counter, ``counters[unit]``, which is 0 between calls
+    (the kernel counts arrivals with ``atomicInc``, which wraps it to 0 at
+    the unit's last). ``window_cap`` is the most slots a block stages: a
+    tile's window or a chunk."""
+
+    seg: SegmentLayout
+    slot_targets: torch.Tensor  # [K·Emax] int32
+    chunks: torch.Tensor        # [n_chunks, 8] int32
+    counters: torch.Tensor      # [n_units] int32, zero
+    chunk_slots: int
+    window_cap: int
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunks.shape[0])
+
+    @property
+    def split(self) -> bool:
+        """Whether some unit has more than one chunk (partial rows)."""
+        return self.n_chunks > self.seg.n_units
+
+
+def build_gspmm_layout(plan, seg: SegmentLayout | None = None
+                       ) -> GspmmLayout:
+    """List each staged slot's target and cut the units of ``seg`` (the
+    plan's :func:`segment_layout` by default) into chunks of GS_CHUNK
+    slots, in plain PyTorch on the plan's device (host syncs: never inside
+    a CUDA-graph capture)."""
+    seg = segment_layout(plan) if seg is None else seg
+    size = GS_CHUNK
+    units = seg.units.long()
+    dev = units.device
+
+    # the staged runs' slots: their tile's window start + offset
+    tiles = seg.tiles.long()
+    tile_of = torch.repeat_interleave(torch.arange(seg.n_tiles, device=dev),
+                                      tiles[:, 1],
+                                      output_size=seg.words.numel())
+    words = seg.words.long()
+    run = torch.nonzero(((words >> 16) > 0) & ((words >> 16) != SEG_UNIT))
+    run = run.reshape(-1)
+    run_len = words[run] >> 16
+    n_slots = int(run_len.sum())
+    which = torch.repeat_interleave(torch.arange(run.numel(), device=dev),
+                                    run_len, output_size=n_slots)
+    slot = (tiles[tile_of[run], 2] + (words[run] & 0xFFFF))[which] \
+        + torch.arange(n_slots, device=dev) - _ptr(run_len)[which]
+    slot_targets = torch.full((plan.k * plan.e_max,), -1, dtype=torch.int32,
+                              device=dev)
+    slot_targets[slot] = run[which].to(torch.int32)
+
+    n = (units[:, 2] + size - 1) // size                 # chunks per unit
+    first = _ptr(n)
+    n_chunks = int(first[-1])
+    unit = torch.repeat_interleave(torch.arange(seg.n_units, device=dev), n,
+                                   output_size=n_chunks)
+    i = torch.arange(n_chunks, device=dev) - first[unit]  # chunk in unit
+    length = torch.clamp(units[unit, 2] - i * size, max=size)
+    chunks = torch.stack([units[unit, 0], units[unit, 1] + i * size, length,
+                          unit, first[unit], n[unit],
+                          torch.zeros_like(unit), torch.zeros_like(unit)], 1)
+    longest = int(length.max()) if n_chunks else 0
+    return GspmmLayout(seg, slot_targets, chunks.to(torch.int32).contiguous(),
+                       torch.zeros(seg.n_units, dtype=torch.int32,
+                                   device=dev), size,
+                       max(seg.window_cap, longest))
+
+
+def gspmm_layout(plan) -> GspmmLayout:
+    """The plan's :class:`GspmmLayout`, built once and kept on the plan,
+    as :func:`segment_layout` is (with the plan on the card, else at its
+    first call)."""
+    return plan._memo("_gspmm_layout", lambda: build_gspmm_layout(plan))
+
+
+def gspmm_mapping(f: int, vec4: bool) -> tuple[int, int]:
+    """(lanes, vec): how ``csrc/gspmm.cu`` gathers an F-wide row. ``lanes``
+    lanes share a slot, each loading ``vec`` floats of its row a pass
+    (``vec`` 4 where ``vec4``: F % 4 == 0 and the planes 16-byte aligned);
+    a row of more than lanes·vec floats takes several passes. F = 8 takes
+    two lanes a slot, F = 128 a warp."""
+    vec = 4 if vec4 else 1
+    pieces = -(-f // vec)
+    lanes = 1
+    while lanes < 32 and lanes < pieces:
+        lanes *= 2
+    return lanes, vec
+
+
 def gspmm(plan, feats: torch.Tensor, weights: torch.Tensor,
           combine: str = "add") -> torch.Tensor:
     """Gather · multiply · segment-reduce in one kernel.
@@ -351,8 +465,11 @@ def gspmm(plan, feats: torch.Tensor, weights: torch.Tensor,
     combine "add"/"sum", "max", or "mean" (sum over the clamped live
             degree)
     -> [K, Vmax, F] per-target aggregates (always rank 3), identity at
-    padding vertices. CUDA tensors launch the kernel; CPU tensors run
-    :func:`gspmm_ref`.
+    padding vertices. CUDA tensors launch the kernel over the plan's
+    :func:`gspmm_layout` (on a plan not made on the card, built at its
+    first call: do that outside any CUDA-graph capture); CPU tensors run
+    :func:`gspmm_ref`. Calls on one plan share its arrival counters: do
+    not run two at once on different streams.
     """
     if combine == "sum":
         combine = "add"
@@ -365,28 +482,61 @@ def gspmm(plan, feats: torch.Tensor, weights: torch.Tensor,
     k, e_max, v_max = plan.k, plan.e_max, plan.v_max
     f = int(feats3.shape[2])
     _check(feats3, "feats", torch.float32, (k, v_max, f))
-    per_feature = weights.ndim == 3
     _check(weights, "weights", torch.float32,
-           (k, e_max, f) if per_feature else (k, e_max))
-    _check_plan(plan, "edge_nbr", "emask", "run_start", "last_slot", "vmask",
-                "edge_tgt", "csr_fill")
-    dev = feats3.device
-    out = torch.empty((k, v_max, f), dtype=torch.float32, device=dev)
-    # scratch: a count, then {target, first slot, last slot} per chunk of
-    # the long (hub) runs; a long run is over 32 slots and gives at most one
-    # chunk per 33 of them, so K·Emax/32 entries always suffice
-    work = torch.empty(1 + 3 * (k * e_max // 32), dtype=torch.int32,
-                       device=dev)
-    fn = cuda_build.entry("gspmm")
-    ptrs = [t.data_ptr() for t in (feats3, weights, plan.edge_nbr, plan.emask,
-                                   plan.run_start, plan.last_slot, plan.vmask,
-                                   plan.edge_tgt, plan.csr_fill, out, work)]
-    rc = fn(*ptrs, k, e_max, v_max, f, int(per_feature), plan.csr_fill_min,
-            _OP_CODE[combine], _stream())
-    if rc != 0:
-        raise RuntimeError(f"gspmm kernel launch failed: CUDA error {rc}")
+           (k, e_max, f) if weights.ndim == 3 else (k, e_max))
+    _check_plan(plan, "edge_nbr", "emask")
+    if k * max(e_max, v_max) >= 2**31:
+        raise ValueError("gspmm: K·Emax and K·Vmax must fit in int32")
+    out = _gspmm_launch(plan, gspmm_layout(plan), feats3, weights, combine)
     LAUNCHES["gspmm"] += 1
     return out
+
+
+def _gspmm_launch(plan, lay: GspmmLayout, feats3: torch.Tensor,
+                  weights: torch.Tensor, combine: str,
+                  mapping: tuple[int, int] | None = None) -> torch.Tensor:
+    """One launch of ``csrc/gspmm.cu`` over ``lay`` on checked arguments:
+    the output, and the unit partials where a unit is split, allocated
+    here. ``mapping`` is a (lanes, vec) of the kernel's GSPMM_SHAPES,
+    :func:`gspmm_mapping`'s by default (``tools/probe_kernels.py`` times
+    the others)."""
+    out, args = _gspmm_args(plan, lay, feats3, weights, combine, mapping)
+    rc = cuda_build.entry("gspmm")(*args)
+    if rc != 0:
+        raise RuntimeError(f"gspmm kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _gspmm_args(plan, lay: GspmmLayout, feats3: torch.Tensor,
+                weights: torch.Tensor, combine: str,
+                mapping: tuple[int, int] | None = None):
+    """The output, allocated here, and the arguments of ``gspmm_f32``
+    for :func:`_gspmm_launch`, which ``tools/probe_kernels.py`` also hands
+    to another build of the kernel."""
+    seg = lay.seg
+    k, v_max, f = (int(n) for n in feats3.shape)
+    per_feature = weights.ndim == 3
+    out = torch.empty((k, v_max, f), dtype=torch.float32,
+                      device=feats3.device)
+    partials = torch.empty((lay.n_chunks, f), dtype=torch.float32,
+                           device=feats3.device) if lay.split else out
+    vec4 = f % 4 == 0 and feats3.data_ptr() % 16 == 0 and \
+        (not per_feature or weights.data_ptr() % 16 == 0)
+    lanes, vec = mapping or gspmm_mapping(f, vec4)
+    # a tile's window starts 16 slots aligned within its partition, so a
+    # 16-byte load of its slots is aligned only where Emax % 4 == 0 too
+    stage4 = plan.e_max % 4 == 0 and plan.edge_nbr.data_ptr() % 16 == 0 \
+        and plan.emask.data_ptr() % 4 == 0 and \
+        lay.slot_targets.data_ptr() % 16 == 0 and \
+        (per_feature or weights.data_ptr() % 16 == 0)
+    ptrs = [t.data_ptr() for t in (feats3, weights, plan.edge_nbr, plan.emask,
+                                   out, seg.tiles, seg.words,
+                                   lay.slot_targets, lay.chunks, seg.app_ptr,
+                                   seg.app_slots, partials, lay.counters)]
+    return out, (*ptrs, seg.n_tiles, lay.n_chunks, lay.window_cap,
+                 seg.tile_targets, seg.n_append, plan.e_max, v_max, f,
+                 int(per_feature), _OP_CODE[combine], lanes, vec,
+                 int(stage4), _stream())
 
 
 def gspmm_ref(plan, feats: torch.Tensor, weights: torch.Tensor,

@@ -19,14 +19,16 @@ slot in the edge stream that always holds the combine identity.
 
 Slack: ``edge_slack`` / ``vertex_slack`` reserve per-partition capacity;
 ``csr_fill`` marks the end of the sorted CSR prefix, and ``[csr_fill,
-e_max)`` is the unsorted append region that the kernels fold in by scatter.
+e_max)`` is the unsorted append region, whose live slots the kernels
+combine into each target after its run.
 
 Index fields stay int32 like the reference's. The runtime needs int64
 indices for gathers and scatters; :meth:`PartitionPlan.index64` widens a
 field once per plan and keeps the result, as :attr:`PartitionPlan.run_start`
-keeps each slot's run start for the kernels and
-``engine.kernels.segment_layout`` keeps ``segment_reduce``'s layout (built
-with the plan when the plan is made on the card, so no query pays it).
+keeps each slot's run start for the layouts, and
+``engine.kernels.segment_layout`` and ``gspmm_layout`` keep
+``segment_reduce``'s and ``gspmm``'s layouts (built with the plan when the
+plan is made on the card, so no query pays them).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.graph import Graph, edge_weights, resolve_device
-from .kernels import segment_layout
+from .kernels import gspmm_layout
 
 #: The 16 tensor fields, in the reference's order.
 TENSOR_FIELDS = ("local2global", "vmask", "edge_tgt", "edge_nbr", "emask",
@@ -112,18 +114,11 @@ class PartitionPlan:
                           lambda: int(self.n_local.sum()))
 
     @property
-    def csr_fill_min(self) -> int:
-        """Lowest ``csr_fill`` over partitions: slots below it are CSR
-        prefix in every partition (the append-region kernel starts here)."""
-        return self._memo("_csr_fill_min", lambda: int(self.csr_fill.min()))
-
-    @property
     def run_start(self) -> torch.Tensor:
         """[K, Emax] int32: the nearest slot at or before each slot with
         ``seg_start`` set (0 if none), i.e. where the run through that slot
-        begins. ``gspmm`` reads a target's run as ``[run_start[last_slot],
-        last_slot]`` instead of searching back for its start, and
-        ``segment_reduce``'s layout is built from it."""
+        begins: a target's run is ``[run_start[last_slot], last_slot]``,
+        which the kernels' layout is built from."""
         def make():
             slot = torch.arange(self.e_max, dtype=torch.int32,
                                 device=self.device)
@@ -271,7 +266,7 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
     """Build a plan from the 22 fields, given as a mapping or as attributes
     of any object (e.g. a reference ``repro.engine.plan.PartitionPlan``);
     arrays are anything ``np.asarray`` converts. On the card the plan's
-    ``segment_reduce`` layout is built here too."""
+    ``segment_reduce`` and ``gspmm`` layouts are built here too."""
     dev = resolve_device(device)
 
     def get(name):
@@ -282,5 +277,5 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
                for f in TENSOR_FIELDS}
     plan = PartitionPlan(**static, **tensors)
     if plan.device.type == "cuda":
-        segment_layout(plan)
+        gspmm_layout(plan)          # and, under it, segment_layout(plan)
     return plan

@@ -182,21 +182,52 @@ def test_engine_on_card_equals_cpu():
         assert out[dev][i].row() == out["cpu"][i].row()
 
 
+def _wider(plan, pad: int):
+    """``plan`` with ``pad`` dead slots appended to every partition's edge
+    stream (in its append region): with Emax not a multiple of 4, no
+    partition after the first starts 16-byte aligned."""
+    def grow(t, fill):
+        return torch.cat([t, torch.full((plan.k, pad), fill, dtype=t.dtype,
+                                        device=t.device)], 1)
+    return dataclasses.replace(
+        plan, e_max=plan.e_max + pad, edge_tgt=grow(plan.edge_tgt, 0),
+        edge_nbr=grow(plan.edge_nbr, 0), emask=grow(plan.emask, False),
+        seg_start=grow(plan.seg_start, False), edge_w=grow(plan.edge_w, 1.0),
+        edge_slot=grow(plan.edge_slot, -1))
+
+
 @pytest.mark.gpu
 def test_gspmm_matches_plain_on_card():
     """max exact; add and mean within 1e-4 relative (non-negative terms, up
-    to ~10^3 per run, summed in another order: hub runs combine block
-    partials by atomics); one gspmm launch per call, and mean adds one
-    segment_reduce launch for the degree. Fresh, patched and hub plans;
-    widths 1 (rank-2 feats), 3, 8 and 40; scalar and per-feature
-    weights."""
+    to ~10^3 per run, summed in another order: a tile's groups in slot
+    order, a hub's chunks in chunk order), and two add calls give the same
+    bits; one gspmm launch per call, and mean adds one segment_reduce
+    launch for the degree. Fresh, patched and hub plans (the hub's run is
+    cut into chunks whose partial rows the last block combines); widths 1
+    (rank-2 feats), 3, 8, 40, 40 in a plane that is not 16-byte aligned
+    (two passes of a warp's 32 floats) and 128, and 256 (two passes of a
+    warp's 128) on the hub plan; scalar and per-feature weights. Each
+    plan also widened by two dead slots a partition (Emax % 4 == 2), where
+    the tiles stage their windows a slot at a time: 16-byte loads would be
+    misaligned there. A call runs one CUDA kernel and allocates its output
+    and the hub's partial rows, nothing else: the layout was built with
+    the plan."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(2)
-    plans = dict(_plans(dev), hub=_hub_plan(dev))
+    plans = dict(_plans(dev), hub=_hub_plan(dev, leaves=5 * TK.GS_CHUNK))
+    assert "_gspmm_layout" in plans["hub"].__dict__
+    assert TK.gspmm_layout(plans["hub"]).split
+    plans.update({f"{name}_wide": _wider(plan, 2)
+                  for name, plan in plans.items()})
     for name, plan in plans.items():
-        for features in (1, 3, 8, 40):
-            feats = torch.rand((plan.k, plan.v_max, features), generator=gen,
-                               device=dev)
+        widths = (1, 3, 8, 40, -40, 128) + ((256,) if name == "hub" else ())
+        for features in widths:
+            feats = torch.rand((plan.k, plan.v_max, abs(features)),
+                               generator=gen, device=dev)
+            if features < 0:     # 4-byte aligned only: 40 floats a lane
+                flat = torch.empty(feats.numel() + 1, device=dev)
+                feats = flat[1:].view(feats.shape).copy_(feats)
+                features = -features
             if features == 1:
                 feats = feats[:, :, 0]
             wide = torch.rand(tuple(plan.emask.shape) + (features,),
@@ -217,6 +248,45 @@ def test_gspmm_matches_plain_on_card():
                     else:
                         torch.testing.assert_close(got, want, rtol=1e-4,
                                                    atol=1e-6, msg=str(key))
+                    if combine == "add":
+                        assert torch.equal(TK.gspmm(plan, feats, w, combine),
+                                           got), key
+    plan = plans["hub"]
+    feats = torch.rand((plan.k, plan.v_max, 8), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    TK.gspmm(plan, feats, plan.edge_w, "add")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs + 2                           # the output and the partials
+    for _ in range(3):   # a profiler session that recorded nothing again
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            TK.gspmm(plan, feats, plan.edge_w, "add")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "gspmm_kernel" in kernels[0], kernels
+
+
+@pytest.mark.gpu
+def test_gspmm_graph_replays_on_card():
+    """One add call on the hub plan (its hub run split into chunks, whose
+    last arrival wraps the unit's counter back to 0) captured in a CUDA graph
+    and replayed on three feature planes: each output equals the eager
+    call's, bit for bit."""
+    dev = _card()
+    plan = _hub_plan(dev, leaves=5 * TK.GS_CHUNK)
+    assert TK.gspmm_layout(plan).split
+    gen = torch.Generator(device=dev).manual_seed(5)
+    planes = [torch.rand((plan.k, plan.v_max, 8), generator=gen, device=dev)
+              for _ in range(3)]
+    _replays_equal(lambda x: TK.gspmm(plan, x, plan.edge_w, "add"),
+                   planes[0].clone(), planes,
+                   lambda x: TK.gspmm(plan, x.to(dev), plan.edge_w,
+                                      "add").cpu())
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
-"""Time the design choices of segment_reduce, minplus_sweep and
+"""Time the design choices of segment_reduce, gspmm, minplus_sweep and
 selective_scan on one GPU, and, with ``--parent``, the kernels they
 replaced, in the same process.
 
-    python3 tools/probe_kernels.py [--parent DIR] [--only NAME,...]
+    python3 tools/probe_kernels.py [--parent DIR] [--twin DIR]
+                                   [--only NAME,...]
 
 segment_reduce: on the main path's plan (dblp 1.0 partitioned by DFEP, K =
 16, 4000 rounds, as ``chip_smoke.py``'s main phase), min over SSSP-like
@@ -13,6 +14,17 @@ and run-kind thresholds), and, to show where the time goes, with parts of
 the layout taken away (only the tiles; only the units; every block
 launched with nothing to do) beside one empty kernel's launch; the
 layout's build (which ``compile_plan`` makes on the card) is timed again.
+gspmm: on the same plan, add with scalar weights at F = 8 and 128 and with
+per-feature weights at F = 8 (kge_score's shape), held to the plain version
+(``chip_smoke.GSPMM_ADD_RTOL``) and timed with the plan's layout and
+mapping, with each of GS_MAPPINGS (lanes a slot, floats a load), with
+layouts built under each of GS_VARIANTS (unit chunk sizes,
+tile sizes, the unit threshold), and, to show where the time goes, with
+parts of the layout taken away (only the tiles; only the units; every
+block launched with nothing to do), and on the plans with only the
+largest hub run live and with no live slot (``chip_smoke._hub_split``);
+then, at F = 1, 4, 8, 32 and 128, the kernel, the kernel with no live
+slot, and ``fill_`` of an output of that size.
 minplus_sweep: on the same partition, ETSCH's flat [K·V] state (~20% +inf,
 ~5% of the live edges masked out), the whole graph's [V] state,
 multi-source SSSP's [K·8·V] state, and usroads 1.0 partitioned the same
@@ -28,13 +40,19 @@ draws them, held to ``chip_smoke.SCAN_REL`` of the plain loop.
 
 ``--parent DIR`` names a checkout of the commit before a redesign: its
 ``csrc/segment_reduce.cu`` (a memset, a thread per target, a block per
-listed hub, an atomic append scatter), ``csrc/minplus_sweep.cu`` and
+listed hub, an atomic append scatter), ``csrc/gspmm.cu`` (a memset, a lane
+group per target, hub chunks listed by an atomic and combined by float
+atomics, an append launch), ``csrc/minplus_sweep.cu`` and
 ``csrc/selective_scan.cu`` are built with nvcc into ``build/parent/`` and
 called through their own C entry points, timed in the order parent, new,
 new, parent; the parent's segment_reduce also on one target and one append
 slot (its four device operations with almost no work). Device times are
-CUDA-graph replays (``chip_smoke.device_ms``). One JSON object per line;
-the card's name and power limit first.
+CUDA-graph replays (``chip_smoke.device_ms``). ``--twin DIR`` names a
+checkout whose ``csrc/gspmm.cu`` has this tree's C entry point (another
+build of this design): it is built into ``build/twin/`` (its ``nvcc``
+seconds logged) and timed in turns with this tree's at each gspmm case
+(``twin_turns``: the twin's times under ``parent_ms``). One JSON object
+per line; the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -44,6 +62,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,11 +94,25 @@ SEG_VARIANTS = {
     **{f"warp_{t}": {"SEG_WARP": t} for t in (256, 1024)},
     **{f"gap_{t}": {"SEG_GAP": t} for t in (8, 128)},
 }
-#: The replaced kernels' C entry points: (symbol, argtypes). Those of
-#: minplus_sweep and selective_scan are the ones before their redesign:
-#: ``--parent`` with those probes takes a checkout from before it.
+#: gspmm layout settings tried beside the defaults: label -> engine.kernels
+#: constants (GS_CHUNK: a unit chunk's slots; SEG_WARP: the longest run a
+#: tile keeps).
+GS_VARIANTS = {
+    **{f"chunk_{t}": {"GS_CHUNK": t} for t in (256, 1024, 2048, 8192)},
+    **{f"slots_{t}": {"SEG_TILE_SLOTS": t} for t in (1024, 4096)},
+    **{f"warp_{t}": {"SEG_WARP": t} for t in (128, 2048)},
+}
+#: gspmm mappings timed beside gspmm_mapping's, by width: (lanes a slot,
+#: floats a load), each one of csrc/gspmm.cu's GSPMM_SHAPES; a row wider
+#: than lanes·floats takes several passes.
+GS_MAPPINGS = {1: [], 8: [(2, 4), (1, 4), (8, 1), (4, 1)],
+               128: [(32, 4), (16, 4), (32, 1)]}
+#: The replaced kernels' C entry points: (symbol, argtypes), each the one
+#: before its kernel's last redesign: ``--parent`` with a probe takes a
+#: checkout from before that kernel's redesign.
 PARENT = {
     "segment_reduce": ("segment_reduce_f32", [_P] * 9 + [_I] * 6 + [_P]),
+    "gspmm": ("gspmm_f32", [_P] * 11 + [_I] * 7 + [_P]),
     "minplus_sweep": ("minplus_sweep_f32",
                       [_P] * 5 + [_L, _L, ctypes.c_float, _P]),
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
@@ -100,12 +133,15 @@ def _parent_entries(parent: Path, names) -> dict:
     return fns
 
 
-def _nvcc(source: Path, lib: Path) -> None:
+def _nvcc(source: Path, lib: Path) -> float:
+    """Build ``source`` into ``lib``; the seconds it took."""
     from repro_torch import cuda_build
     lib.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
                     "-o", str(lib), str(source)],
                    check=True, capture_output=True, text=True)
+    return time.perf_counter() - t0
 
 
 def _empty_kernel():
@@ -197,7 +233,7 @@ def probe_segment(g, owner, gen, parent) -> None:
                                device=dev)
             old_out = torch.empty_like(out)
 
-            def old(k=plan.k, v=plan.v_max, lo=plan.csr_fill_min):
+            def old(k=plan.k, v=plan.v_max, lo=int(plan.csr_fill.min())):
                 rc = old_fn(*[t.data_ptr() for t in (
                     m, plan.emask, plan.run_start, plan.last_slot,
                     plan.vmask, plan.edge_tgt, plan.csr_fill, old_out,
@@ -231,6 +267,148 @@ def probe_segment(g, owner, gen, parent) -> None:
     def empty_call():
         C.require(empty(stream().cuda_stream) == 0, "empty kernel")
     row["empty_kernel_ms"] = C.device_ms(empty_call)
+    C.log(row)
+
+
+def _twin_entry(twin: Path):
+    """gspmm's C entry point built from the checkout ``twin``, whose
+    ``csrc/gspmm.cu`` has this tree's C interface, and the seconds its
+    ``nvcc`` took."""
+    from repro_torch import cuda_build
+    lib = ROOT / "build" / "twin" / "gspmm.so"
+    secs = _nvcc(twin / "src/repro_torch/csrc/gspmm.cu", lib)
+    symbol, argtypes = cuda_build.SIGNATURES["gspmm"]
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn, secs
+
+
+def _variant_layouts(Kn, plan, variants) -> dict:
+    """label -> the GspmmLayout built with that label's constants set."""
+    out = {}
+    for label, setting in variants.items():
+        saved = {key: getattr(Kn, key) for key in setting}
+        for key, value in setting.items():
+            setattr(Kn, key, value)
+        out[label] = Kn.build_gspmm_layout(plan, Kn.build_segment_layout(
+            plan))
+        for key, value in saved.items():
+            setattr(Kn, key, value)
+    return out
+
+
+def probe_gspmm(g, owner, gen, parent, twin) -> None:
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels as Kn
+    plan = E.compile_plan(g, owner, C.K)
+    dev = plan.device
+    base = Kn.gspmm_layout(plan)
+    variants = _variant_layouts(Kn, plan, GS_VARIANTS)
+    _, hub_only, empty = C._hub_split(plan)
+    # where the time goes (timing only: those outputs are not whole)
+    seg = base.seg
+    idle = seg.tiles.clone()
+    idle[:, [1, 3, 4, 5, 6, 7]] = 0
+    empty_chunks = base.chunks.clone()
+    empty_chunks[:, 2] = 0
+    empty_chunks[:, 5] = 1
+    parts = {"tiles_only": dataclasses.replace(base,
+                                               chunks=base.chunks[:0]),
+             "units_only": dataclasses.replace(
+                 base, seg=dataclasses.replace(seg, tiles=seg.tiles[:0])),
+             "idle": dataclasses.replace(
+                 base, chunks=empty_chunks, seg=dataclasses.replace(
+                     seg, tiles=idle, app_slots=seg.app_slots[:0]))}
+    C.log({"phase": "probe.gspmm.layout", "layout": seg.stats(),
+           "chunks": base.n_chunks, "chunk_slots": base.chunk_slots,
+           "longest_units": seg.units[:8, 2].tolist(),
+           "layout_build_s": C.wall(lambda: Kn.build_gspmm_layout(
+               plan, Kn.build_segment_layout(plan)))[1],
+           "variants": {label: {"chunks": lay.n_chunks,
+                                **lay.seg.stats()}
+                        for label, lay in variants.items()}})
+    cases = [("f1", 1, False), ("f8", 8, False), ("feature_f8", 8, True),
+             ("f128", 128, False)]
+    for name, f, per_feature in cases:
+        feats = torch.rand((plan.k, plan.v_max, f), generator=gen,
+                           device=dev)
+        w = torch.rand(tuple(plan.emask.shape) + (f,), generator=gen,
+                       device=dev) if per_feature else plan.edge_w
+        want = Kn.gspmm_ref(plan, feats, w, "add")
+
+        def held(got, what):
+            rel = float(((got - want).abs()
+                         / want.abs().clamp(min=1e-30)).max())
+            C.require(rel <= C.GSPMM_ADD_RTOL, f"gspmm {name} {what}: {rel}")
+
+        def launch(lay=base, mapping=None):
+            return lambda: Kn._gspmm_launch(plan, lay, feats, w, "add",
+                                            mapping)
+        row = {"phase": "probe.gspmm", "case": name,
+               "mapping": Kn.gspmm_mapping(f, f % 4 == 0),
+               "bound_ms": C._gspmm_bound(plan, f, per_feature)[0]}
+        held(Kn.gspmm(plan, feats, w, "add"), "default")
+        row["kernel_ms"] = C.device_ms(lambda: Kn.gspmm(plan, feats, w,
+                                                        "add"))
+        if not per_feature:
+            for m in GS_MAPPINGS[f]:
+                held(launch(mapping=m)(), f"mapping {m}")
+                row[f"map_{'_'.join(map(str, m))}_ms"] = C.device_ms(
+                    launch(mapping=m))
+            for label, lay in variants.items():
+                held(launch(lay)(), label)
+                row[f"{label}_ms"] = C.device_ms(launch(lay))
+        for label, lay in parts.items():
+            row[f"{label}_ms"] = C.device_ms(launch(lay))
+        for label, p in (("hub_only", hub_only), ("empty", empty)):
+            pw = w if per_feature else p.edge_w
+            row[f"{label}_plan_ms"] = C.device_ms(
+                lambda: Kn.gspmm(p, feats, pw, "add"))
+        if parent is not None:
+            old_fn = parent["gspmm"]
+            work = torch.empty(1 + 3 * (plan.k * plan.e_max // 32),
+                               dtype=torch.int32, device=dev)
+            old_out = torch.empty_like(want)
+            lo = int(plan.csr_fill.min())
+
+            def old():
+                rc = old_fn(*[t.data_ptr() for t in (
+                    feats, w, plan.edge_nbr, plan.emask, plan.run_start,
+                    plan.last_slot, plan.vmask, plan.edge_tgt, plan.csr_fill,
+                    old_out, work)], plan.k, plan.e_max, plan.v_max, f,
+                    int(per_feature), lo, Kn._OP_CODE["add"],
+                    torch.cuda.current_stream().cuda_stream)
+                C.require(rc == 0, f"parent gspmm: CUDA error {rc}")
+                return old_out
+            old()
+            held(old_out, "parent")
+            row["turns"] = _in_turns(old, lambda: Kn.gspmm(plan, feats, w,
+                                                           "add"))
+        if twin is not None:
+            def other():
+                out, args = Kn._gspmm_args(plan, base, feats, w, "add")
+                rc = twin(*args)
+                C.require(rc == 0, f"twin gspmm: CUDA error {rc}")
+                return out
+            held(other(), "twin")
+            row["twin_turns"] = _in_turns(other, lambda: Kn.gspmm(
+                plan, feats, w, "add"))
+        C.log(row)
+        del feats, want
+    # time against width: the kernel, the kernel with no live slot (its
+    # walk and its writes), and writing an output of that size (fill_)
+    row = {"phase": "probe.gspmm.widths"}
+    for f in (1, 4, 8, 32, 128):
+        feats = torch.rand((plan.k, plan.v_max, f), generator=gen,
+                           device=dev)
+        out = torch.empty_like(feats)
+        row[f"f{f}"] = {
+            "kernel_ms": C.device_ms(lambda: Kn.gspmm(plan, feats,
+                                                      plan.edge_w, "add")),
+            "empty_ms": C.device_ms(lambda: Kn.gspmm(empty, feats,
+                                                     empty.edge_w, "add")),
+            "fill_ms": C.device_ms(lambda: out.fill_(0.0))}
+        del feats, out
     C.log(row)
 
 
@@ -361,12 +539,15 @@ def probe_scan(gen, parent) -> None:
         C.log(row)
 
 
-PROBES = ("segment_reduce", "selective_scan", "minplus_sweep")
+PROBES = ("segment_reduce", "gspmm", "selective_scan", "minplus_sweep")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--twin", type=Path, default=None,
+                    help="a checkout whose gspmm.cu has this tree's C "
+                         "interface, timed in turns against this tree's")
     ap.add_argument("--only", default=",".join(PROBES),
                     help=f"comma-separated subset of {PROBES}")
     args = ap.parse_args()
@@ -379,13 +560,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
     if "selective_scan" in only:
         probe_scan(gen, parent)
-    if {"segment_reduce", "minplus_sweep"} & set(only):
+    if {"segment_reduce", "gspmm", "minplus_sweep"} & set(only):
         from repro_torch.core import dfep, graph
         g = graph.load_dataset("dblp", scale=C.DBLP_SCALE, seed=C.SEED)
         owner, _ = dfep.partition(g, k=C.K, seed=C.SEED, max_rounds=4000,
                                   stall_rounds=64)
         if "segment_reduce" in only:
             probe_segment(g, owner, gen, parent)
+        if "gspmm" in only:
+            twin = None
+            if args.twin is not None:
+                twin, secs = _twin_entry(args.twin)
+                C.log({"phase": "probe.gspmm.twin", "build_s": secs})
+            probe_gspmm(g, owner, gen, parent, twin)
         if "minplus_sweep" in only:
             probe_minplus(g, owner, gen, parent)
     print(json.dumps({"ok": True}), flush=True)

@@ -6,7 +6,7 @@ Phases, in the order they run (any failure raises, so the process exits
 non-zero with no "ok" line):
 
 1. device   — require CUDA; print the card's name and power limit
-              (nvidia-smi); build the seven CUDA kernels from
+              (nvidia-smi); build the eight CUDA kernels from
               ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, in
               parallel.
 2. main     — the paper's pipeline at the EC2 scale, through the user entry
@@ -16,11 +16,13 @@ non-zero with no "ok" line):
               from vertex 0, WCC and PageRank (30 supersteps). SSSP and WCC
               must equal a scipy.sparse.csgraph oracle exactly; PageRank
               must agree with the engine's plain path on the card and with a
-              float64 numpy oracle to the relative tolerances below. The
-              launch counters are zeroed before this phase; lane_cumsum (DFEP's
-              rank cumsum) must have risen during ``dfep.partition``, and
-              the engine's kernels (segment_reduce, masked_update) by the
-              phase's end.
+              float64 numpy oracle to the relative tolerances below; SSSP,
+              WCC and PageRank's counters, and SSSP's and WCC's states,
+              must equal the engine's plain path's. The launch counters are
+              zeroed before this phase; lane_cumsum (DFEP's rank cumsum)
+              must have risen during ``dfep.partition``, and the engine's
+              kernels (segment_reduce, exchange) by the phase's end, with
+              one exchange launch a superstep and no masked_update.
 3. gnn      — the second path on the main phase's plan, through the user
               entry points: ``engine_gcn_layer`` (x [V, 8], weight [8, 4]),
               ``engine_kge_score`` (entity [V, 8], relation [e_pad, 8]),
@@ -29,7 +31,8 @@ non-zero with no "ok" line):
               ``engine_personalized_pagerank`` (30 supersteps), inputs
               seeded from numpy. The counters are zeroed before it; gspmm
               must rise during gcn_layer and during kge_score, and every
-              kernel of the path by its end. wsssp, BFS and labelprop must
+              kernel of the path by its end (one exchange a superstep, no
+              masked_update). wsssp, BFS and labelprop must
               equal host numpy/scipy oracles bit for bit; PPR must agree with
               the plain path on the card and with a float64 numpy oracle
               element by element, and gcn_layer and kge_score to a bound
@@ -78,7 +81,15 @@ non-zero with no "ok" line):
               bit, and its per-plan layout's build time and counts logged;
               gspmm at F = 1, 8 and 128, add/max/mean, scalar and per-feature
               weights, add also against a second call, bit for bit;
-              masked_update scalar and at the GNN state's F=8);
+              masked_update, the glob-form update no single-device path
+              launches now, scalar and at the GNN state's F=8; exchange,
+              the whole replica exchange, at F = 1 and 8, min/add/max, on
+              the main path's plan, the patched one, a hub in all K
+              partitions and the main graph compiled for K + 1 partitions
+              (the last empty): bit for bit against its layout's plain
+              walk, min and max exact and add within EXCHANGE_ADD_ATOL of
+              the reference chain, two add calls the same bits, and each
+              plan's layout build time and counts logged);
               lane_cumsum on DFEP's [2·e_pad, 16] and [V, 16] 0/1 arrays
               (int32, exact) and a float32 case, frontier_min on [16, V]
               with the real member mask and at multi-source SSSP's
@@ -92,7 +103,11 @@ non-zero with no "ok" line):
               graph replayed once more and held exact; the layouts' build
               time logged); then timed: device time from CUDA-graph replays
               (``ms``, ``plain_ms``, ``library_ms``) and eager back-to-back
-              calls with their host launch cost (``*_eager_ms``), gspmm
+              calls with their host launch cost (``*_eager_ms``), exchange
+              at EXCHANGE_CASES against the parent's chain (its
+              ``library_ms``: where, full, scatter_reduce_ and the
+              masked_update kernel), also in turns (chain, kernel, kernel,
+              chain), gspmm
               at F = 8 and 128 with scalar weights and at kge_score's F = 8
               with per-feature weights, also with only its largest hub run
               live and with no live slot (the difference is the hub run's
@@ -164,6 +179,11 @@ GNN_ORACLE_REL = 1e-3
 #    relative to the running sum: float32 rounding over 1.9 M terms, summed
 #    per tile and per row group rather than in order. int32 is exact.
 FLOAT_CUMSUM_RTOL = 1e-4
+#  * exchange add vs the reference chain, on values in [0, 1): the same
+#    sums of at most K = 16 terms in another order (the chain's atomics),
+#    a few float32 roundings of sums below 16 (an ulp there is 1.9e-6).
+#    Against the layout's plain walk every combine is bit for bit.
+EXCHANGE_ADD_ATOL = 1e-5
 #  * selective_scan kernel vs its plain loop, relative to the largest
 #    |y| and |h_last|: both float32 and the same recurrence; the kernel
 #    contracts multiply-adds and sums the 16-term dot in shuffle order
@@ -183,8 +203,8 @@ DBLP_SCALE, K, SEED = 1.0, 16, 0
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 512, 16
 CPU_CHECK_SCALE = 0.03
 #: The kernels each path must launch.
-MAIN_KERNELS = ("segment_reduce", "masked_update")
-GNN_KERNELS = ("gspmm", "segment_reduce", "masked_update")
+MAIN_KERNELS = ("segment_reduce", "exchange")
+GNN_KERNELS = ("gspmm", "segment_reduce", "exchange")
 ETSCH_KERNELS = ("minplus_sweep", "frontier_min")
 #: etsch_multi_sssp's seeded sources.
 N_SOURCES = 8
@@ -193,6 +213,12 @@ N_SOURCES = 8
 #: no k has a core strictly between; k = 4 peels the whole graph away, the
 #: longest run.
 K_CORE = 4
+#: exchange cases timed: (label, F, combine) — the main path's scalar min
+#: (SSSP, WCC) and add (PageRank), the gnn path's [K, Vmax, 8] add and max.
+EXCHANGE_CASES = (("f1_min", 1, "min"), ("f1_add", 1, "add"),
+                  ("f8_add", 8, "add"), ("f8_max", 8, "max"))
+#: The hub plan of the exchange check: a star of this many leaves.
+EXCHANGE_HUB_LEAVES = 100_000
 #: gspmm widths timed: the GNN programs' (8) and fig_gnn.py's widest (128).
 GSPMM_WIDTHS = (8, 128)
 #: Interleaved repeats of the largest hub run's timing (its spread is the
@@ -440,6 +466,16 @@ def phase_device():
     return card
 
 
+def _one_exchange_a_superstep(launches: dict, results, path: str) -> None:
+    """The engine's exchange is one ``exchange`` launch a superstep and
+    never the glob-form ``masked_update``."""
+    steps = sum(r.supersteps for r in results)
+    require(launches["exchange"] == steps and launches["masked_update"] == 0,
+            f"{path}: {launches['exchange']} exchange and "
+            f"{launches['masked_update']} masked_update launches for "
+            f"{steps} supersteps")
+
+
 def phase_main():
     from repro_torch.core import dfep, graph
     from repro_torch import engine as E
@@ -496,6 +532,7 @@ def phase_main():
     for name in MAIN_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
+    _one_exchange_a_superstep(launches, results.values(), "main")
 
     csr = csr_of(g)
     sssp = results["sssp"].state.cpu().numpy()
@@ -506,13 +543,22 @@ def phase_main():
             "WCC differs from the scipy oracle")
     require(all(results[n].converged for n in ("sssp", "wcc")),
             "SSSP/WCC did not converge")
+    plain_eng = E.Engine(plan, use_kernels=False)
+    for name, run in (("sssp", E.engine_sssp), ("wcc", E.engine_wcc)):
+        ref = run(plain_eng, *((0,) if name == "sssp" else ()))
+        require(torch.equal(results[name].state, ref.state)
+                and results[name].row() == ref.row(),
+                f"{name}: kernel path differs from the plain path")
     pr = results["pagerank"].state
-    pr_plain, t = wall(lambda: E.engine_pagerank(
-        E.Engine(plan, use_kernels=False), g.degrees(), iters=30))
+    pr_plain, t = wall(lambda: E.engine_pagerank(plain_eng, g.degrees(),
+                                                 iters=30))
     rel_plain = max_rel(pr, pr_plain.state)
     rel_oracle = max_rel(pr, pagerank_oracle(g))
+    require(results["pagerank"].row() == pr_plain.row(),
+            "PageRank counters differ from the plain path")
     log({"phase": "main.check", "sssp_equal_oracle": True,
-         "wcc_equal_oracle": True, "pagerank_max_rel_vs_plain": rel_plain,
+         "wcc_equal_oracle": True, "sssp_wcc_equal_plain": True,
+         "pagerank_max_rel_vs_plain": rel_plain,
          "pagerank_plain_wall_s": t, "pagerank_max_rel_vs_f64_oracle":
              rel_oracle, "launches": launches})
     require(rel_plain <= PR_PLAIN_RTOL, f"PageRank kernel vs plain path: "
@@ -564,6 +610,7 @@ def phase_gnn(g, plan):
     for name in GNN_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the gnn path")
+    _one_exchange_a_superstep(launches, results.values(), "gnn")
     # the first calls above include one-off set-up (library loads, cuBLAS
     # for gcn_layer's matmul); a second call of each is the warm query
     log({"phase": "gnn.warm", "wall_s": {name: wall(lambda: run(eng))[1]
@@ -1046,6 +1093,118 @@ def _mu_bound(plan, f: int = 1) -> tuple[float, str]:
     rows = int(torch.unique(plan.local2global[rep]).numel())
     nbytes = 4 * f * private + 4 * n_rep + 4 * f * rows + 2 * kv + 4 * f * kv
     return _bound(nbytes, 0)
+
+
+def _exchange_bound(plan, f: int = 1) -> tuple[float, str]:
+    """Least time for the exchange on this plan: each live slot's value
+    read once, each group's slot indices (and its pointer) read once, both
+    masks read once and every slot written once."""
+    kv = plan.k * plan.v_max
+    live = int(plan.vmask.sum())
+    rep = plan.vmask & plan.replicated
+    groups = int(torch.unique(plan.local2global[rep]).numel())
+    nbytes = (4 * f * live + 4 * (int(rep.sum()) + groups + 1) + 2 * kv
+              + 4 * f * kv)
+    return _bound(nbytes, 0)
+
+
+def _exchange_plans(g, owner, plan, patched) -> dict:
+    """The exchange's plans: the main path's, the patched one, a hub in
+    all K partitions (a star of EXCHANGE_HUB_LEAVES leaves on a path, each
+    edge owned by ``dst % K``; each leaf in two or three partitions), and
+    the main path's graph and owner compiled for K + 1 partitions (the
+    last one empty)."""
+    from repro_torch import engine as E
+    from repro_torch.core import graph
+    n = EXCHANGE_HUB_LEAVES
+    star = np.stack([np.zeros(n, np.int64), np.arange(1, n + 1)], 1)
+    path = np.stack([np.arange(1, n), np.arange(2, n + 1)], 1)
+    hub_g = graph.from_edge_array(n + 1, np.concatenate([star, path]))
+    hub = E.compile_plan(hub_g, torch.where(hub_g.edge_mask, hub_g.dst % K,
+                                            -2), K)
+    return {"plan": plan, "patched": patched, "hub": hub,
+            "empty_part": E.compile_plan(g, owner, K + 1)}
+
+
+def _exchange_checks(Kn, plans, gen) -> float:
+    """exchange against its plain versions on each of ``plans`` at F = 1
+    and 8: bit for bit against the layout's plain walk
+    (``exchange_layout_ref``) for min, add and max; against the reference
+    chain (``exchange_ref``) min and max exact, add within
+    EXCHANGE_ADD_ATOL, and two add calls the same bits. Returns the
+    largest |kernel - chain|."""
+    errs, stats = {}, {}
+    for pname, p in plans.items():
+        lay = Kn.exchange_layout(p)
+        stats[pname] = dict(lay.stats(), build_s=wall(
+            lambda: Kn.build_exchange_layout(p))[1])
+        for f in (1, 8):
+            shape = (p.k, p.v_max) + ((f,) if f > 1 else ())
+            x = torch.rand(shape, generator=gen, device=p.device)
+            inf = torch.rand(shape, generator=gen, device=p.device) < 0.2
+            for combine in ("min", "add", "max"):
+                key = f"{pname}.f{f}.{combine}"
+                vals = torch.where(inf, float("inf"), x * 30) \
+                    if combine == "min" else x
+                got = Kn.exchange(p, vals, combine)
+                require(torch.equal(got, Kn.exchange_layout_ref(
+                    p, vals, combine)), f"exchange {key}: not its layout "
+                    "walk, bit for bit")
+                want = Kn.exchange_ref(p, vals, combine)
+                torch.cuda.synchronize()
+                errs[key] = _max_abs(got, want)
+                if combine == "add":
+                    require(errs[key] <= EXCHANGE_ADD_ATOL,
+                            f"exchange {key}: max abs {errs[key]}")
+                    require(torch.equal(Kn.exchange(p, vals, combine), got),
+                            f"exchange {key}: two calls differ")
+                else:
+                    require(torch.equal(got, want),
+                            f"exchange {key} is not exact")
+            del x, inf
+    log({"phase": "kernels.exchange.check", "max_abs_err": errs,
+         "layout_walk_identical": True, "add_repeat_identical": True,
+         "layouts": stats})
+    return max(errs.values())
+
+
+def _exchange_values(plan, gen, f: int, combine: str) -> torch.Tensor:
+    """[K, Vmax(, F)] exchange values: in [0, 30) with ~20% +inf
+    (unreached) for min, in [0, 1) for add and max."""
+    shape = (plan.k, plan.v_max) + ((f,) if f > 1 else ())
+    x = torch.rand(shape, generator=gen, device=plan.device)
+    if combine != "min":
+        return x
+    return torch.where(torch.rand(shape, generator=gen, device=plan.device)
+                       < 0.2, float("inf"), x * 30)
+
+
+def _exchange_timing(Kn, plan, gen, times) -> dict:
+    """exchange on the main path's plan at EXCHANGE_CASES: the kernel, its
+    plain version and the parent's chain (``exchange_ref`` closed by the
+    ``masked_update`` kernel, as the engine ran it before), device and
+    eager ms; the kernel and the chain also in turns (chain, kernel,
+    kernel, chain); the bound."""
+    out = {}
+    for label, f, combine in EXCHANGE_CASES:
+        vals = _exchange_values(plan, gen, f, combine)
+
+        def kernel():
+            return Kn.exchange(plan, vals, combine)
+
+        def chain():
+            return Kn.exchange_ref(plan, vals, combine,
+                                   update=Kn.masked_update)
+        t = times(kernel=kernel, plain=lambda: Kn.exchange_ref(
+            plan, vals, combine), library=chain)
+        c1, k1 = device_ms(chain), device_ms(kernel)
+        k2, c2 = device_ms(kernel), device_ms(chain)
+        t["turns"] = {"library_ms": [c1, c2], "kernel_ms": [k1, k2]}
+        t["bound_ms"], t["bound_by"] = _exchange_bound(plan, f)
+        out[label] = t
+        del vals
+    log({"phase": "kernels.exchange.timing", **out})
+    return out
 
 
 def _gspmm_bound(plan, f: int, per_feature: bool = False
@@ -1689,6 +1848,8 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     log({"phase": "kernels.masked_update.check", "exact": True,
          "shapes": [list(state.shape), list(state8.shape)],
          "max_abs_err": mu_err})
+    ex_err = _exchange_checks(Kn, _exchange_plans(g, owner, plan, patched),
+                              gen)
 
     # timing at the main path's shapes
     masked = {c: torch.where(plan.emask, m, Kn._IDENTITY[c]).reshape(-1)
@@ -1719,6 +1880,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     mu8_t["bound_ms"], mu8_t["bound_by"] = _mu_bound(plan, 8)
     log({"phase": "kernels.timing", "segment_reduce": seg_t,
          "masked_update": mu_t, "masked_update_f8": mu8_t})
+    ex_t = _exchange_timing(Kn, plan, gen, times)
     gs_err = _gspmm_checks(Kn, plan, patched, gen)
     gs_t = _gspmm_timing(Kn, plan, gen, times)
     lc = _lane_cumsum_section(g, owner, gen, times)
@@ -1744,16 +1906,35 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "add_plain_ms": seg_t["add"]["plain_ms"],
          "add_library_ms": seg_t["add"]["library_ms"],
          "layout": layouts["plan"]},
-        {"name": "masked_update", "route": "cuda",
-         "source": "src/repro_torch/csrc/masked_update.cu",
+        {"name": "exchange", "route": "cuda",
+         "source": "src/repro_torch/csrc/replica_exchange.cu",
          "replaces": "src/repro/engine/kernels.py:394",
-         "launches": launches["masked_update"],
-         "launches_gnn": gnn_launches["masked_update"], "max_abs_err": mu_err,
-         "ms": mu_t["kernel_ms"], "plain_ms": mu_t["plain_ms"],
-         "bound_ms": mu_bound, "bound_by": mu_by, "library_ms": None,
+         "launches": launches["exchange"],
+         "launches_gnn": gnn_launches["exchange"], "max_abs_err": ex_err,
+         "ms": ex_t["f1_min"]["kernel_ms"],
+         "plain_ms": ex_t["f1_min"]["plain_ms"],
+         "bound_ms": ex_t["f1_min"]["bound_ms"],
+         "bound_by": ex_t["f1_min"]["bound_by"],
+         "library_ms": ex_t["f1_min"]["library_ms"],
+         "library": "the parent's exchange chain: where, full, "
+                    "scatter_reduce_, masked_update",
          "combine": "min", "shape": [plan.k, plan.v_max],
-         "f8": {k: mu8_t[k] for k in (
-             "kernel_ms", "plain_ms", "bound_ms", "bound_by")}},
+         **{label: {k: ex_t[label][k] for k in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "kernel_eager_ms", "library_eager_ms", "turns")}
+            for label, _, _ in EXCHANGE_CASES},
+         "layout": dict(Kn.exchange_layout(plan).stats()),
+         # the glob-form update, kept for a cross-device exchange; no
+         # single-device path launches it
+         "masked_update": {
+             "source": "src/repro_torch/csrc/masked_update.cu",
+             "launches": launches["masked_update"],
+             "launches_gnn": gnn_launches["masked_update"],
+             "max_abs_err": mu_err, "ms": mu_t["kernel_ms"],
+             "plain_ms": mu_t["plain_ms"], "bound_ms": mu_bound,
+             "bound_by": mu_by, "library_ms": None,
+             "f8": {k: mu8_t[k] for k in (
+                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}},
         {"name": "gspmm", "route": "cuda",
          "source": "src/repro_torch/csrc/gspmm.cu",
          "replaces": "src/repro/engine/kernels.py:233",

@@ -40,6 +40,7 @@ SIGNATURES = {
                       [_P] * 6 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                   _P]),
     "gspmm": ("gspmm_f32", [_P] * 13 + [_I] * 13 + [_P]),
+    "replica_exchange": ("replica_exchange_f32", [_P] * 6 + [_I] * 5 + [_P]),
     "lane_cumsum": ("lane_cumsum", [_P] * 3 + [ctypes.c_longlong]
                     + [_I] * 3 + [_P]),
     "frontier_min": ("frontier_min", [_P] * 3 + [_I, ctypes.c_longlong, _I,

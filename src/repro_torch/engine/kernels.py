@@ -30,12 +30,27 @@ PyTorch versions.
     ``repro/engine/kernels.py::_gspmm_scan`` (``_gspmm_kernel``), wrapped
     there by ``gspmm``.
 
+``exchange``
+    The replica exchange of every superstep: each replicated vertex's live
+    slots are combined across partitions and the result written back to
+    each, private slots keep their own, padding is pinned to the identity.
+    CUDA C++ in ``csrc/replica_exchange.cu``: one launch over an
+    :class:`ExchangeLayout` built once per plan (:func:`exchange_layout`),
+    which lists each replicated vertex's live slots in ascending partition;
+    a thread (two at F = 8) folds a group in that order and writes it back,
+    so no global frontier, no atomics, and the order of a sum is fixed.
+    Replaces ``repro/engine/kernels.py::masked_update``
+    (``_update_kernel``) with the scatter that feeds it in the reference's
+    ``runtime._exchange``.
+
 ``masked_update``
-    The replica update that closes every exchange: replicated slots take
-    the cut-combined global value, private slots keep their own, padding is
-    pinned to the identity. CUDA C++ in ``csrc/masked_update.cu``, fused
-    with the ``glob[local2global]`` gather that feeds it. Replaces
-    ``repro/engine/kernels.py::masked_update`` (``_update_kernel``).
+    The glob-form replica update: replicated slots take a global frontier
+    ``glob [V(, F)]`` combined elsewhere, private slots keep their own,
+    padding is pinned to the identity. CUDA C++ in
+    ``csrc/masked_update.cu``, fused with the ``glob[local2global]`` gather
+    that feeds it. No single-device path launches it: it is kept for a
+    cross-device exchange, whose ``glob`` is all-reduced across devices
+    before the update.
 
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) for CPU tensors; there is no fallback from one to the
@@ -83,7 +98,8 @@ SEG_GAP = 32
 SEG_UNIT = 0x7FFF
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES = {"segment_reduce": 0, "masked_update": 0, "gspmm": 0}
+LAUNCHES = {"segment_reduce": 0, "masked_update": 0, "gspmm": 0,
+            "exchange": 0}
 
 
 def reset_launches() -> None:
@@ -100,6 +116,8 @@ def _check_plan(plan, *names: str) -> None:
             "edge_nbr": (torch.int32, (k, e_max)),
             "last_slot": (torch.int32, (k, v_max)),
             "vmask": (torch.bool, (k, v_max)),
+            "replicated": (torch.bool, (k, v_max)),
+            "local2global": (torch.int32, (k, v_max)),
             "csr_fill": (torch.int32, (k,))}
     for name in names:
         _check(getattr(plan, name), f"plan.{name}", *spec[name])
@@ -643,3 +661,162 @@ def masked_update_ref(state: torch.Tensor, glob: torch.Tensor,
         vmask, replicated = vmask[:, :, None], replicated[:, :, None]
     new = torch.where(replicated, inc, state)
     return torch.where(vmask, new, ident)
+
+
+def exchange_ref(plan, values: torch.Tensor, combine: str = "min", *,
+                 update=masked_update_ref) -> torch.Tensor:
+    """Plain version of :func:`exchange`: the reference's chain (its
+    ``runtime._exchange``). The live replicated slots are scattered into a
+    global frontier ``glob [V(, F)]`` (``scatter_reduce_``: an add sums in
+    an order that changes from call to call), then ``update`` gathers it
+    back: :func:`masked_update_ref`, or :func:`masked_update`, with which
+    the engine ran this chain on the card before :func:`exchange`."""
+    ident = _IDENTITY[combine]
+    mask = plan.vmask & plan.replicated
+    send = torch.where(mask[:, :, None] if values.ndim == 3 else mask,
+                       values, ident)
+    tail = tuple(values.shape[2:])
+    glob = torch.full((plan.n_vertices,) + tail, ident, dtype=torch.float32,
+                      device=values.device)
+    flat_send = send.reshape((-1,) + tail)
+    idx = plan.index64("local2global").reshape(-1)
+    if tail:
+        idx = idx.reshape(-1, 1).expand(-1, *tail)
+    # add identity is 0.0, so the masked send scatters exactly
+    glob.scatter_reduce_(0, idx, flat_send, _SCATTER[combine])
+    return update(values, glob, plan.local2global, plan.vmask,
+                  plan.replicated, combine)
+
+
+# ---------------------------------------------------------------------------
+# exchange
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeLayout:
+    """Who combines what in :func:`exchange`, for one plan (it reads only
+    the plan's masks and ``local2global``; values are read per call).
+
+    A group is a global vertex with live replicated slots (``vmask &
+    replicated``): group ``i``'s slots are ``slots[ptr[i]:ptr[i + 1]]``,
+    flat ``k·Vmax + v``, in ascending ``k``, the order in which the kernel
+    combines them. Groups are listed by falling size, then by vertex, so
+    neighbouring threads hold groups of one size (hubs beside hubs, pairs
+    beside pairs), the largest first. Private live slots and padding are
+    not listed: the kernel reads their masks."""
+
+    ptr: torch.Tensor           # [G + 1] int32
+    slots: torch.Tensor         # [R] int32 flat slots, by group, ascending k
+    largest: int                # slots of the largest group
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.ptr.numel()) - 1
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.slots.numel())
+
+    def stats(self) -> dict:
+        """Counts to log: groups, replicated slots, the largest group, and
+        groups by size."""
+        sizes = torch.bincount(torch.diff(self.ptr.long()))
+        return {"groups": self.n_groups, "replicated_slots": self.n_slots,
+                "largest_group": self.largest,
+                "groups_by_size": {int(m): int(c) for m, c in
+                                   enumerate(sizes.tolist()) if c}}
+
+
+def build_exchange_layout(plan) -> ExchangeLayout:
+    """Build the :class:`ExchangeLayout` of ``plan`` on its device, in plain
+    PyTorch (host syncs: never inside a CUDA-graph capture)."""
+    _check_plan(plan, "vmask", "replicated", "local2global")
+    n_slots, n = plan.k * plan.v_max, plan.n_vertices
+    if n_slots >= 2**31:
+        raise ValueError("exchange: K·Vmax must fit in int32")
+    slots = torch.nonzero((plan.vmask & plan.replicated).reshape(-1))
+    slots = slots.reshape(-1)                   # by k, then v
+    vert = plan.local2global.reshape(-1)[slots].long()
+    if slots.numel() and not bool(((vert >= 0) & (vert < n)).all()):
+        raise ValueError("exchange: a live replicated slot's local2global "
+                         "is outside [0, n_vertices)")
+    size = torch.bincount(vert, minlength=n)
+    groups = torch.nonzero(size).reshape(-1)
+    largest = int(size.max()) if slots.numel() else 0
+    groups = groups[torch.argsort((largest - size[groups]) * n + groups)]
+    rank = torch.empty(n, dtype=torch.long, device=slots.device)
+    rank[groups] = torch.arange(groups.numel(), device=slots.device)
+    slots = slots[torch.argsort(rank[vert] * n_slots + slots)]
+    return ExchangeLayout(_ptr(size[groups]).to(torch.int32),
+                          slots.to(torch.int32), largest)
+
+
+def exchange_layout(plan) -> ExchangeLayout:
+    """The plan's :class:`ExchangeLayout`, built once and kept on the plan,
+    as :func:`segment_layout` is (with the plan on the card, else at its
+    first call)."""
+    return plan._memo("_exchange_layout", lambda: build_exchange_layout(plan))
+
+
+def exchange(plan, values: torch.Tensor, combine: str = "min"
+             ) -> torch.Tensor:
+    """The replica exchange of a superstep: every live replicated slot
+    takes the combine of its vertex's live replicated slots (ascending
+    partition, from the identity), private live slots keep their value,
+    padding gets the identity.
+
+    values [K, Vmax(, F)] float32 -> same shape. CUDA tensors launch one
+    kernel over the plan's :func:`exchange_layout` (on a plan not made on
+    the card, built at its first call: do that outside any CUDA-graph
+    capture); CPU tensors run :func:`exchange_ref`.
+    """
+    if not _on_card(values, plan.vmask):
+        return exchange_ref(plan, values, combine)
+    k, v_max = plan.k, plan.v_max
+    f = 1 if values.ndim == 2 else int(values.shape[2])
+    _check(values, "values", torch.float32,
+           (k, v_max) if values.ndim == 2 else (k, v_max, f))
+    _check_plan(plan, "vmask", "replicated")
+    lay = exchange_layout(plan)
+    out = torch.empty_like(values)
+    vec = values.data_ptr() % 16 == 0 and plan.vmask.data_ptr() % 4 == 0 \
+        and plan.replicated.data_ptr() % 4 == 0
+    ptrs = [t.data_ptr() for t in (values, plan.vmask, plan.replicated,
+                                   lay.ptr, lay.slots, out)]
+    rc = cuda_build.entry("replica_exchange")(
+        *ptrs, lay.n_groups, k * v_max, f, _OP_CODE[combine], int(vec),
+        _stream())
+    if rc != 0:
+        raise RuntimeError(f"exchange kernel launch failed: CUDA error {rc}")
+    LAUNCHES["exchange"] += 1
+    return out
+
+
+def exchange_layout_ref(plan, values: torch.Tensor, combine: str = "min"
+                        ) -> torch.Tensor:
+    """The kernel's reading of the plan's :func:`exchange_layout` in plain
+    PyTorch: each group's values gathered in layout order and folded from
+    the identity one slot at a time, the result scattered back to the
+    group's slots; private live slots copied and padding set to the
+    identity. The same float32 operations in the same order as
+    ``csrc/replica_exchange.cu``."""
+    lay = exchange_layout(plan)
+    ident = _IDENTITY[combine]
+    op = {"min": torch.minimum, "add": torch.add, "max": torch.maximum}[
+        combine]
+    tail = tuple(values.shape[2:])
+    flat = values.reshape((-1,) + tail)
+    vmask = plan.vmask.reshape(-1)
+    out = torch.where(vmask[:, None] if tail else vmask, flat, ident)
+    ptr, slots = lay.ptr.long(), lay.slots.long()
+    size = torch.diff(ptr)
+    acc = torch.full((lay.n_groups,) + tail, ident, dtype=torch.float32,
+                     device=values.device)
+    for j in range(lay.largest):                # the j-th slot of each group
+        has = size > j
+        acc[has] = op(acc[has], flat[slots[ptr[:-1][has] + j]])
+    group = torch.repeat_interleave(torch.arange(lay.n_groups,
+                                                 device=values.device),
+                                    size, output_size=lay.n_slots)
+    out[slots] = acc[group]
+    return out.view(values.shape)

@@ -26,9 +26,9 @@ Index fields stay int32 like the reference's. The runtime needs int64
 indices for gathers and scatters; :meth:`PartitionPlan.index64` widens a
 field once per plan and keeps the result, as :attr:`PartitionPlan.run_start`
 keeps each slot's run start for the layouts, and
-``engine.kernels.segment_layout`` and ``gspmm_layout`` keep
-``segment_reduce``'s and ``gspmm``'s layouts (built with the plan when the
-plan is made on the card, so no query pays them).
+``engine.kernels.segment_layout``, ``gspmm_layout`` and ``exchange_layout``
+keep ``segment_reduce``'s, ``gspmm``'s and ``exchange``'s layouts (built
+with the plan when the plan is made on the card, so no query pays them).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.graph import Graph, edge_weights, resolve_device
-from .kernels import gspmm_layout
+from .kernels import exchange_layout, gspmm_layout
 
 #: The 16 tensor fields, in the reference's order.
 TENSOR_FIELDS = ("local2global", "vmask", "edge_tgt", "edge_nbr", "emask",
@@ -266,7 +266,8 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
     """Build a plan from the 22 fields, given as a mapping or as attributes
     of any object (e.g. a reference ``repro.engine.plan.PartitionPlan``);
     arrays are anything ``np.asarray`` converts. On the card the plan's
-    ``segment_reduce`` and ``gspmm`` layouts are built here too."""
+    ``segment_reduce``, ``gspmm`` and ``exchange`` layouts are built here
+    too."""
     dev = resolve_device(device)
 
     def get(name):
@@ -278,4 +279,5 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
     plan = PartitionPlan(**static, **tensors)
     if plan.device.type == "cuda":
         gspmm_layout(plan)          # and, under it, segment_layout(plan)
+        exchange_layout(plan)
     return plan

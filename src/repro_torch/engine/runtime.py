@@ -7,10 +7,11 @@ Counterpart of ``repro.engine.runtime`` on one device. Execution model
      CSR block (gather neighbour values along half-edges, segment-reduce per
      target, apply) — to a local fixed point for min-style programs, exactly
      one sweep for partial-aggregation programs (PageRank);
-  2. *replica exchange* — only ``plan.replicated`` slots are scattered to a
-     global frontier array, combined across partitions (min for replica
-     state, add for partial aggregates) and gathered back by the fused
-     ``masked_update`` kernel.
+  2. *replica exchange* — each vertex's ``plan.replicated`` slots are
+     combined across partitions (min for replica state, add for partial
+     aggregates) and the result written back to each: one
+     ``kernels.exchange`` launch over the plan's replica layout, where the
+     reference scatters into a global frontier array and gathers it back.
 
 Steps 1–2 repeat until the exchanged state reaches a global fixed point
 (or for a fixed number of supersteps). ``supersteps`` is the paper's
@@ -141,24 +142,13 @@ def _exchange(plan: PartitionPlan, values, combine: str, *,
               use_kernels: bool):
     """Combine replicated slots across partitions; private slots unchanged.
 
-    values [K, Vmax(, F)] -> same shape. The scatter into the global
-    frontier stays plain torch, as the reference leaves it to XLA.
+    values [K, Vmax(, F)] -> same shape. With ``use_kernels`` one launch
+    over the plan's replica layout (``kernels.exchange``); else the
+    reference's scatter-and-gather chain (``kernels.exchange_ref``).
     """
-    ident = kernels._IDENTITY[combine]
-    send = torch.where(_expand(plan.vmask & plan.replicated, values),
-                       values, ident)
-    tail = tuple(values.shape[2:])
-    glob = torch.full((plan.n_vertices,) + tail, ident, dtype=torch.float32,
-                      device=values.device)
-    flat_send = send.reshape((-1,) + tail)
-    idx = plan.index64("local2global").reshape(-1)
-    if tail:
-        idx = idx.reshape(-1, 1).expand(-1, *tail)
-    # add identity is 0.0, so the masked send scatters exactly
-    glob.scatter_reduce_(0, idx, flat_send, kernels._SCATTER[combine])
-    update = kernels.masked_update if use_kernels else kernels.masked_update_ref
-    return update(values, glob, plan.local2global, plan.vmask,
-                  plan.replicated, combine)
+    if use_kernels:
+        return kernels.exchange(plan, values, combine)
+    return kernels.exchange_ref(plan, values, combine)
 
 
 def _gather_global(plan: PartitionPlan, state):

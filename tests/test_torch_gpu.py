@@ -161,6 +161,120 @@ def test_masked_update_matches_plain_on_card():
             assert torch.equal(got, TK.masked_update_ref(*args, combine))
 
 
+def _exchange_plans(dev: str) -> dict:
+    """The exchange's plans: fresh and patched; a hub in all 16 partitions
+    (a star on a path, each edge owned by ``dst % 16``); partition 2 of 3
+    with no edge; that plan with a dead vertex slot a partition (Vmax % 4
+    == 1 and K·Vmax % 4 == 3: partitions not 16-byte aligned, and a last
+    thread of F = 1 with fewer than four slots)."""
+    plans = _plans(dev)
+    leaves = 600
+    star = np.stack([np.zeros(leaves, np.int64), np.arange(1, leaves + 1)],
+                    1)
+    path = np.stack([np.arange(1, leaves), np.arange(2, leaves + 1)], 1)
+    g = TG.from_edge_array(leaves + 1, np.concatenate([star, path]),
+                           device=dev)
+    plans["hub_all"] = TE.compile_plan(
+        g, torch.where(g.edge_mask, g.dst % 16, -2), 16, device=dev)
+    plans["empty_part"] = TE.compile_plan(
+        g, torch.where(g.edge_mask, g.dst % 2, -2), 3, device=dev)
+    p = plans["empty_part"]
+
+    def grow(t, fill):
+        return torch.cat([t, torch.full((p.k, 1), fill, dtype=t.dtype,
+                                        device=t.device)], 1)
+    plans["odd_vmax"] = dataclasses.replace(
+        p, v_max=p.v_max + 1, local2global=grow(p.local2global, 0),
+        vmask=grow(p.vmask, False), last_slot=grow(p.last_slot, p.e_max - 1),
+        replicated=grow(p.replicated, False),
+        is_master=grow(p.is_master, False))
+    return plans
+
+
+@pytest.mark.gpu
+def test_exchange_matches_plain_on_card():
+    """The kernel against the layout's plain walk, bit for bit for every
+    combine (the same float32 operations in the same order), and against
+    the reference chain ``exchange_ref``: min and max bit-exact, add within
+    1e-5 and two add calls the same bits. Fresh, patched, hub-in-all-16,
+    empty-partition and Vmax % 4 == 1 plans; F = 1, 3, 8, 16, and 1 and 8
+    in planes that are not 16-byte aligned. Exactly one ``exchange`` launch a
+    call, one CUDA kernel, and the output its only allocation (the layout
+    was built with the plan, or at the first call)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    plans = _exchange_plans(dev)
+    assert "_exchange_layout" in plans["hub_all"].__dict__
+    assert TK.exchange_layout(plans["hub_all"]).largest == 16
+    for name, plan in plans.items():
+        for features in (1, 3, 8, 16, -1, -8):
+            shape = (plan.k, plan.v_max) + ((abs(features),)
+                                            if abs(features) != 1 else ())
+            x = torch.rand(shape, generator=gen, device=dev)
+            if features < 0:          # 4-byte aligned only
+                flat = torch.empty(x.numel() + 1, device=dev)
+                x = flat[1:].view(shape).copy_(x)
+            inf = torch.rand(shape, generator=gen, device=dev) < 0.2
+            for combine in COMBINES:
+                vals = {"min": torch.where(inf, float("inf"), x * 10),
+                        "max": x, "add": x / 100}[combine]
+                before = dict(TK.LAUNCHES)
+                got = TK.exchange(plan, vals, combine)
+                torch.cuda.synchronize()
+                assert TK.LAUNCHES["exchange"] == before["exchange"] + 1
+                assert TK.LAUNCHES["masked_update"] == \
+                    before["masked_update"]
+                key = (name, features, combine)
+                assert got.shape == vals.shape, key
+                assert torch.equal(got, TK.exchange_layout_ref(
+                    plan, vals, combine)), key
+                want = TK.exchange_ref(plan, vals, combine)
+                if combine == "add":
+                    torch.testing.assert_close(got, want, rtol=0,
+                                               atol=ADD_ATOL, msg=str(key))
+                    assert torch.equal(TK.exchange(plan, vals, combine),
+                                       got), key
+                else:
+                    assert torch.equal(got, want), key
+    plan = plans["hub_all"]
+    x = torch.rand((plan.k, plan.v_max, 8), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    TK.exchange(plan, x, "add")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs + 1                                   # the output alone
+    for _ in range(3):   # a profiler session that recorded nothing again
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            TK.exchange(plan, x, "add")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "exchange_kernel" in kernels[0], kernels
+
+
+@pytest.mark.gpu
+def test_exchange_graph_replays_on_card():
+    """One add exchange on the hub-in-all-16 plan and one at F = 1 on the
+    Vmax % 4 == 1 plan, captured in a CUDA graph and replayed on three
+    value planes: each output equals the eager call's, bit for bit."""
+    dev = _card()
+    plans = _exchange_plans(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for name, tail in (("hub_all", (8,)), ("odd_vmax", ())):
+        plan = plans[name]
+        TK.exchange_layout(plan)            # built outside the capture
+        planes = [torch.rand((plan.k, plan.v_max) + tail, generator=gen,
+                             device=dev) for _ in range(3)]
+        _replays_equal(lambda x, p=plan: TK.exchange(p, x, "add"),
+                       planes[0].clone(), planes,
+                       lambda x, p=plan: TK.exchange(p, x.to(dev),
+                                                     "add").cpu())
+
+
 @pytest.mark.gpu
 def test_engine_on_card_equals_cpu():
     """The whole slice on the card equals the port on the CPU: DFEP owner

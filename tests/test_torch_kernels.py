@@ -165,8 +165,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_library_path_keyed_by_source():
     paths = {n: cuda_build.library_path(n) for n in cuda_build.SIGNATURES}
     assert set(paths) == {"segment_reduce", "masked_update", "gspmm",
-                          "lane_cumsum", "frontier_min", "minplus_sweep",
-                          "selective_scan"}
+                          "replica_exchange", "lane_cumsum", "frontier_min",
+                          "minplus_sweep", "selective_scan"}
     for name, path in paths.items():
         assert path.parent == cuda_build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"

@@ -1,6 +1,6 @@
-"""Time the design choices of segment_reduce, gspmm, minplus_sweep and
-selective_scan on one GPU, and, with ``--parent``, the kernels they
-replaced, in the same process.
+"""Time the design choices of segment_reduce, gspmm, minplus_sweep,
+selective_scan and the replica exchange on one GPU, and, with
+``--parent``, the kernels they replaced, in the same process.
 
     python3 tools/probe_kernels.py [--parent DIR] [--twin DIR]
                                    [--only NAME,...]
@@ -37,13 +37,25 @@ away (only the copy; the tiles without the units; no hubs) beside
 selective_scan: the falcon-mamba-7b prefill shape [4, 512, 8192, 16] from a
 zero state and S = 1 from a random one, inputs drawn as ``chip_smoke.py``
 draws them, held to ``chip_smoke.SCAN_REL`` of the plain loop.
+exchange: on the main path's plan, at ``chip_smoke.EXCHANGE_CASES`` (F = 1
+min and add, F = 8 add and max), the parent's chain (``exchange_ref``
+closed by the ``masked_update`` kernel) in its parts (the mask, ``where``,
+``full``, the index expand, ``scatter_reduce_``, ``masked_update``) and
+whole, device and eager ms; ``replica_exchange`` held to the chain and to
+its layout's plain walk and timed whole, with only its group pass or only
+its slot pass, with its groups in EX_ORDERS, and in turns with the chain;
+``fill_`` of its output; the layout's counts and build time; then warm
+SSSP, WCC, PageRank(30), ``gcn_layer`` and ``kge_score`` with the
+engine's exchange swapped for the chain and back, in turns (counters
+equal).
 
 ``--parent DIR`` names a checkout of the commit before a redesign: its
 ``csrc/segment_reduce.cu`` (a memset, a thread per target, a block per
 listed hub, an atomic append scatter), ``csrc/gspmm.cu`` (a memset, a lane
 group per target, hub chunks listed by an atomic and combined by float
 atomics, an append launch), ``csrc/minplus_sweep.cu`` and
-``csrc/selective_scan.cu`` are built with nvcc into ``build/parent/`` and
+``csrc/selective_scan.cu`` and ``csrc/masked_update.cu`` (the chain's
+update) are built with nvcc into ``build/parent/`` and
 called through their own C entry points, timed in the order parent, new,
 new, parent; the parent's segment_reduce also on one target and one append
 slot (its four device operations with almost no work). Device times are
@@ -51,12 +63,14 @@ CUDA-graph replays (``chip_smoke.device_ms``). ``--twin DIR`` names a
 checkout whose ``csrc/gspmm.cu`` has this tree's C entry point (another
 build of this design): it is built into ``build/twin/`` (its ``nvcc``
 seconds logged) and timed in turns with this tree's at each gspmm case
-(``twin_turns``: the twin's times under ``parent_ms``). One JSON object
+(``twin_turns``: the twin's times under ``parent_ms``); so is its
+``csrc/replica_exchange.cu`` at each exchange case. One JSON object
 per line; the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -116,7 +130,14 @@ PARENT = {
     "minplus_sweep": ("minplus_sweep_f32",
                       [_P] * 5 + [_L, _L, ctypes.c_float, _P]),
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
+    "masked_update": ("masked_update_f32", [_P] * 6 + [_L, _I, _I,
+                                                        ctypes.c_float, _P]),
 }
+
+
+#: The parent library a probe times where it is not the probe's own name:
+#: the exchange's chain closes with the parent's masked_update.
+PARENT_OF = {"exchange": "masked_update"}
 
 
 def _parent_entries(parent: Path, names) -> dict:
@@ -270,14 +291,14 @@ def probe_segment(g, owner, gen, parent) -> None:
     C.log(row)
 
 
-def _twin_entry(twin: Path):
-    """gspmm's C entry point built from the checkout ``twin``, whose
-    ``csrc/gspmm.cu`` has this tree's C interface, and the seconds its
-    ``nvcc`` took."""
+def _twin_entry(twin: Path, name: str):
+    """Library ``name``'s C entry point built from the checkout ``twin``,
+    whose ``csrc/<name>.cu`` has this tree's C interface, and the seconds
+    its ``nvcc`` took."""
     from repro_torch import cuda_build
-    lib = ROOT / "build" / "twin" / "gspmm.so"
-    secs = _nvcc(twin / "src/repro_torch/csrc/gspmm.cu", lib)
-    symbol, argtypes = cuda_build.SIGNATURES["gspmm"]
+    lib = ROOT / "build" / "twin" / f"{name}.so"
+    secs = _nvcc(twin / "src/repro_torch/csrc" / f"{name}.cu", lib)
+    symbol, argtypes = cuda_build.SIGNATURES[name]
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn, secs
@@ -539,15 +560,237 @@ def probe_scan(gen, parent) -> None:
         C.log(row)
 
 
-PROBES = ("segment_reduce", "gspmm", "selective_scan", "minplus_sweep")
+def _chain_parts(Kn, plan, values, combine, update) -> dict:
+    """The device operations of the parent's exchange chain
+    (``Kn.exchange_ref`` with ``update``), each alone on the inputs it gets
+    in the chain: name -> call. ``expand`` is a view (no kernel)."""
+    ident = Kn._IDENTITY[combine]
+    tail = tuple(values.shape[2:])
+    mask = plan.vmask & plan.replicated
+    mask = mask[:, :, None] if tail else mask
+    send = torch.where(mask, values, ident).reshape((-1,) + tail)
+    idx = plan.index64("local2global").reshape(-1)
+    glob = torch.full((plan.n_vertices,) + tail, ident, device=values.device)
+
+    def expand():
+        return idx.reshape(-1, 1).expand(-1, *tail) if tail else idx
+    wide = expand()
+    return {
+        "and": lambda: plan.vmask & plan.replicated,
+        "where": lambda: torch.where(mask, values, ident),
+        "full": lambda: torch.full((plan.n_vertices,) + tail, ident,
+                                   device=values.device),
+        "expand": expand,
+        "scatter_reduce": lambda: glob.scatter_reduce_(
+            0, wide, send, Kn._SCATTER[combine]),
+        "masked_update": lambda: update(values, glob, plan.local2global,
+                                        plan.vmask, plan.replicated,
+                                        combine)}
+
+
+def _exchange_launch(Kn, plan, lay, values, combine, groups=True,
+                     slots=True, fn=None):
+    """One ``replica_exchange_f32`` launch over ``lay`` as the wrapper makes
+    it (of ``fn``, another build of it, if given); ``groups=False`` /
+    ``slots=False`` leave out the group pass or the slot pass (timing
+    only: the output is then not whole)."""
+    from repro_torch import cuda_build
+    out = torch.empty_like(values)
+    f = 1 if values.ndim == 2 else int(values.shape[2])
+    rc = (fn or cuda_build.entry("replica_exchange"))(
+        *[t.data_ptr() for t in (values, plan.vmask, plan.replicated,
+                                 lay.ptr, lay.slots, out)],
+        lay.n_groups if groups else 0,
+        plan.k * plan.v_max if slots else 0, f, Kn._OP_CODE[combine], 1,
+        torch.cuda.current_stream().cuda_stream)
+    C.require(rc == 0, f"replica_exchange: CUDA error {rc}")
+    return out
+
+
+def _ordered_layout(Kn, plan, lay, order: str):
+    """``lay`` with its groups listed in another order (each group's slots
+    and fold unchanged, so the result is the same bits): by falling size,
+    then ``first_slot`` (the group's lowest flat slot) or ``signature``
+    (the set of partitions it spans, then vertex)."""
+    ptr, slots = lay.ptr.long(), lay.slots.long()
+    size = torch.diff(ptr)
+    arange = torch.arange(lay.n_groups, device=ptr.device)
+    group = torch.repeat_interleave(arange, size, output_size=lay.n_slots)
+    if order == "first_slot":
+        key = slots[ptr[:-1]]
+    else:
+        sig = torch.zeros(lay.n_groups, dtype=torch.long, device=ptr.device)
+        sig.index_add_(0, group, 1 << (slots // plan.v_max))
+        vertex = plan.local2global.reshape(-1)[slots[ptr[:-1]]].long()
+        key = sig * plan.n_vertices + vertex
+    perm = torch.argsort((lay.largest - size) * (int(key.max()) + 1) + key)
+    new_size = size[perm]
+    new_ptr = Kn._ptr(new_size)
+    new_group = torch.repeat_interleave(arange, new_size,
+                                        output_size=lay.n_slots)
+    src = ptr[perm][new_group] + torch.arange(lay.n_slots,
+                                              device=ptr.device) \
+        - new_ptr[new_group]
+    return dataclasses.replace(lay, ptr=new_ptr.to(torch.int32),
+                               slots=slots[src].to(torch.int32))
+
+
+@contextlib.contextmanager
+def _chain_exchange(Kn, update):
+    """The engine's exchange replaced by the parent's chain
+    (``Kn.exchange_ref`` closed by ``update``) inside the block."""
+    saved = Kn.exchange
+    Kn.exchange = lambda plan, values, combine="min": Kn.exchange_ref(
+        plan, values, combine, update=update)
+    try:
+        yield
+    finally:
+        Kn.exchange = saved
+
+
+def _end_to_end(g, plan, update) -> dict:
+    """Warm wall s (median of E2E_RUNS) of the main path's programs and the
+    two GNN layers, with the parent's chain and with the kernel, in turns:
+    parent, new, new, parent."""
+    import numpy as np
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels as Kn
+    rng = np.random.default_rng(C.SEED)
+    n, deg = g.n_vertices, g.degrees()
+    x = rng.normal(size=(n, E.GCN_F_IN)).astype(np.float32)
+    weight = rng.normal(size=(E.GCN_F_IN, E.GCN_F_OUT)).astype(np.float32)
+    entity = rng.normal(size=(n, E.KGE_F)).astype(np.float32)
+    relation = rng.normal(size=(g.e_pad, E.KGE_F)).astype(np.float32)
+    eng = E.Engine(plan)
+    runs = {"sssp": lambda: E.engine_sssp(eng, 0),
+            "wcc": lambda: E.engine_wcc(eng),
+            "pagerank": lambda: E.engine_pagerank(eng, deg, iters=30),
+            "gcn_layer": lambda: E.engine_gcn_layer(eng, deg, x, weight),
+            "kge_score": lambda: E.engine_kge_score(eng, entity, relation)}
+
+    def warm(run):
+        run()
+        return float(np.median([C.wall(run)[1] for _ in range(E2E_RUNS)]))
+    out = {}
+    for name, run in runs.items():
+        with _chain_exchange(Kn, update):
+            p1 = warm(run)
+            want = run()
+        n1, n2 = warm(run), warm(run)
+        got = run()
+        with _chain_exchange(Kn, update):
+            p2 = warm(run)
+        C.require(got.row() == want.row(), f"{name}: counters differ")
+        out[name] = {"parent_s": [p1, p2], "new_s": [n1, n2],
+                     "max_abs_diff": float((got.state - want.state).abs()
+                                           .nan_to_num().max())}
+    return out
+
+
+def probe_exchange(g, owner, gen, parent, twin) -> None:
+    """At ``chip_smoke.EXCHANGE_CASES``: the parent's exchange chain in
+    parts (device ms under a CUDA graph, eager ms with the host's launch
+    cost) and whole; the kernel, its group and slot passes alone, and
+    writing its output (``fill_``); the parent chain and the kernel in
+    turns; with ``twin`` (another build's entry point), that build against
+    this one in turns; an empty kernel's launch; then the programs end to
+    end in turns (``_end_to_end``)."""
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels as Kn
+    plan = E.compile_plan(g, owner, C.K)
+    lay = Kn.exchange_layout(plan)
+    orders = {name: _ordered_layout(Kn, plan, lay, name)
+              for name in EX_ORDERS}
+    empty = _empty_kernel()
+    C.log({"phase": "probe.exchange.layout", **lay.stats(),
+           "build_s": C.wall(lambda: Kn.build_exchange_layout(plan))[1],
+           "empty_kernel_ms": C.device_ms(lambda: C.require(
+               empty(torch.cuda.current_stream().cuda_stream) == 0,
+               "empty kernel"))})
+    update = Kn.masked_update
+    if parent is not None:
+        old_fn = parent["masked_update"]
+
+        def update(state, glob, l2g, vmask, rep, combine):
+            out = torch.empty_like(state)
+            f = 1 if state.ndim == 2 else int(state.shape[2])
+            rc = old_fn(*[t.data_ptr() for t in (state, glob, l2g, vmask,
+                                                 rep, out)],
+                        plan.k * plan.v_max, f, plan.n_vertices,
+                        Kn._IDENTITY[combine],
+                        torch.cuda.current_stream().cuda_stream)
+            C.require(rc == 0, f"parent masked_update: CUDA error {rc}")
+            return out
+    for label, f, combine in C.EXCHANGE_CASES:
+        values = C._exchange_values(plan, gen, f, combine)
+        want = Kn.exchange_ref(plan, values, combine)
+
+        def chain():
+            return Kn.exchange_ref(plan, values, combine, update=update)
+
+        def new():
+            return Kn.exchange(plan, values, combine)
+        for what, got in (("chain", chain()), ("kernel", new())):
+            if combine == "add":
+                C.require(C._max_abs(got, want) <= C.EXCHANGE_ADD_ATOL,
+                          f"exchange {what} {label} off the plain version")
+            else:
+                C.require(torch.equal(got, want), f"exchange {what} {label}")
+        C.require(torch.equal(new(), Kn.exchange_layout_ref(
+            plan, values, combine)), f"exchange {label} off its layout walk")
+        parts = _chain_parts(Kn, plan, values, combine, update)
+        out = torch.empty_like(values)
+        row = {"phase": "probe.exchange", "case": label,
+               "shape": list(values.shape),
+               "bound_ms": C._exchange_bound(plan, f)[0],
+               "parts_ms": {name: C.device_ms(fn) for name, fn in
+                            parts.items() if name != "expand"},
+               "parts_eager_ms": {name: C.eager_ms(fn)
+                                  for name, fn in parts.items()},
+               "chain_ms": C.device_ms(chain),
+               "chain_eager_ms": C.eager_ms(chain),
+               "kernel_ms": C.device_ms(new), "kernel_eager_ms":
+                   C.eager_ms(new),
+               "groups_only_ms": C.device_ms(lambda: _exchange_launch(
+                   Kn, plan, lay, values, combine, slots=False)),
+               "slots_only_ms": C.device_ms(lambda: _exchange_launch(
+                   Kn, plan, lay, values, combine, groups=False)),
+               "fill_ms": C.device_ms(lambda: out.fill_(0.0)),
+               "turns": _in_turns(chain, new)}
+        for name, other in orders.items():
+            C.require(torch.equal(_exchange_launch(
+                Kn, plan, other, values, combine), want if combine != "add"
+                else new()), f"exchange {label}: order {name} differs")
+            row[f"order_{name}_ms"] = C.device_ms(
+                lambda: _exchange_launch(Kn, plan, other, values, combine))
+        if twin is not None:
+            def other():
+                return _exchange_launch(Kn, plan, lay, values, combine,
+                                        fn=twin)
+            C.require(torch.equal(other(), new()), f"twin {label} differs")
+            row["twin_turns"] = _in_turns(other, new)
+        C.log(row)
+        del values, want, parts, out
+    C.log({"phase": "probe.exchange.end_to_end",
+           **_end_to_end(g, plan, update)})
+
+
+#: Other orders of the exchange layout's groups timed (``_ordered_layout``).
+EX_ORDERS = ("first_slot", "signature")
+#: Warm runs a program's end-to-end time is the median of.
+E2E_RUNS = 5
+
+PROBES = ("segment_reduce", "gspmm", "selective_scan", "minplus_sweep",
+          "exchange")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--twin", type=Path, default=None,
-                    help="a checkout whose gspmm.cu has this tree's C "
-                         "interface, timed in turns against this tree's")
+                    help="a checkout whose gspmm.cu or replica_exchange.cu "
+                         "has this tree's C interface, timed in turns "
+                         "against this tree's")
     ap.add_argument("--only", default=",".join(PROBES),
                     help=f"comma-separated subset of {PROBES}")
     args = ap.parse_args()
@@ -556,11 +799,12 @@ def main() -> int:
     card = C.phase_device()
     print(card, flush=True)
     parent = None if args.parent is None else _parent_entries(
-        args.parent, [name for name in only if name in PARENT])
+        args.parent, [PARENT_OF.get(name, name) for name in only
+                      if PARENT_OF.get(name, name) in PARENT])
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
     if "selective_scan" in only:
         probe_scan(gen, parent)
-    if {"segment_reduce", "gspmm", "minplus_sweep"} & set(only):
+    if {"segment_reduce", "gspmm", "minplus_sweep", "exchange"} & set(only):
         from repro_torch.core import dfep, graph
         g = graph.load_dataset("dblp", scale=C.DBLP_SCALE, seed=C.SEED)
         owner, _ = dfep.partition(g, k=C.K, seed=C.SEED, max_rounds=4000,
@@ -570,11 +814,17 @@ def main() -> int:
         if "gspmm" in only:
             twin = None
             if args.twin is not None:
-                twin, secs = _twin_entry(args.twin)
+                twin, secs = _twin_entry(args.twin, "gspmm")
                 C.log({"phase": "probe.gspmm.twin", "build_s": secs})
             probe_gspmm(g, owner, gen, parent, twin)
         if "minplus_sweep" in only:
             probe_minplus(g, owner, gen, parent)
+        if "exchange" in only:
+            twin = None
+            if args.twin is not None:
+                twin, secs = _twin_entry(args.twin, "replica_exchange")
+                C.log({"phase": "probe.exchange.twin", "build_s": secs})
+            probe_exchange(g, owner, gen, parent, twin)
     print(json.dumps({"ok": True}), flush=True)
     return 0
 

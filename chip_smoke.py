@@ -37,7 +37,28 @@ non-zero with no "ok" line):
               the plain path on the card and with a float64 numpy oracle
               element by element, and gcn_layer and kge_score to a bound
               relative to their largest value (tolerances below).
-4. etsch    — the paper's own dense ETSCH framework, metrics and baselines
+4. serve    — the serving path on the main phase's graph and DFEP owner:
+              ``compile_plan_cached`` (a miss, then a hit returning the
+              same plan with its three kernel layouts built; the cache's
+              counters 1 miss, 1 hit); ``multi_source_sssp`` from
+              SERVE_LANES seeded sources against one ``engine_sssp`` per
+              source (each lane bit for bit, equal supersteps, local
+              iterations and convergence; the batch's exchange launches
+              equal the longest lane's supersteps and its segment_reduce
+              launches lie between the longest lane's sweeps and their
+              sum; timed first and warm against the solo runs, warm);
+              ``run_batched`` for bfs and wsssp at SERVE_SMALL lanes, cold
+              and warm-started from a one-superstep batch with two rows
+              +inf, each lane against its solo cold or warm run; then a
+              ``GraphServer`` on the card answering SERVE_REQUESTS seeded
+              requests of SERVE_TENANTS tenants (sssp, bfs, wsssp with
+              repeated sources, wcc, pagerank 20 and 30, ppr, labelprop,
+              one gcn_layer), every answer equal to a solo ``Engine`` run
+              (min programs bit for bit, add within SERVE_ADD_ATOL), every
+              micro-batch through the kernels; ``serve`` and ``drain`` (a
+              second stream of SERVE_DRAIN) timed. The counters are zeroed
+              just before ``serve`` and read just after.
+5. etsch    — the paper's own dense ETSCH framework, metrics and baselines
               on the main phase's graph and DFEP owner, through the user
               entry points: ``etsch.compile_partitioning``, then
               ``etsch_sssp(0)`` (equal to scipy and to the main phase's
@@ -58,7 +79,7 @@ non-zero with no "ok" line):
               ``etsch_sssp`` and minplus_sweep in ``evaluate``; each
               problem's line logs its minplus_sweep launches by state
               rows ([K·V], [K·8·V], [V]).
-5. lm       — Mamba serving at falcon-mamba-7b's full width and depth
+6. lm       — Mamba serving at falcon-mamba-7b's full width and depth
               (64 layers, d_model 4096, d_inner 8192, d_state 16, vocab
               65,024): ``lm.init_params`` on the card from a seeded
               generator (float32, 27.1 GiB), then B = LM_BATCH seeded
@@ -74,7 +95,7 @@ non-zero with no "ok" line):
               must fall outside it. The scan's inputs at the first and the
               last layer of the prompt's prefill are kept for the kernels
               phase, and the model is freed before it.
-6. kernels  — each kernel against its plain version on the main path's plan
+7. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
@@ -107,7 +128,10 @@ non-zero with no "ok" line):
               at EXCHANGE_CASES against the parent's chain (its
               ``library_ms``: where, full, scatter_reduce_ and the
               masked_update kernel), also in turns (chain, kernel, kernel,
-              chain), gspmm
+              chain), segment_reduce and exchange (min) at the serve
+              path's lane widths SERVE_WIDTHS (exact against their plain
+              versions; the rows gain ``lanes`` and ``serve_launches``),
+              gspmm
               at F = 8 and 128 with scalar weights and at kge_score's F = 8
               with per-feature weights, also with only its largest hub run
               live and with no live slot (the difference is the hub run's
@@ -118,7 +142,7 @@ non-zero with no "ok" line):
               S = 1, and on the lm phase's captured layer inputs, and timed
               at the prefill shape and at S = 1, each beside its bound
               (bytes, float32 operations, and exps at the SFUs' rate).
-7. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
+8. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
@@ -224,6 +248,19 @@ GSPMM_WIDTHS = (8, 128)
 #: Interleaved repeats of the largest hub run's timing (its spread is the
 #: run-to-run noise of a difference of two device times).
 HUB_REPEATS = 3
+#: The serve phase: multi_source_sssp's lanes, run_batched's lanes for
+#: bfs and wsssp and the rows of their warm block set to +inf (cold), the
+#: GraphServer's tenants and its seeded request stream, and a second
+#: stream for ``drain``. Add programs (pagerank, ppr, gcn_layer) are held
+#: to their solo runs within SERVE_ADD_ATOL (the reference's oracle
+#: bound); min programs bit for bit.
+SERVE_LANES, SERVE_SMALL, SERVE_COLD_ROWS = 32, 8, (2, 5)
+SERVE_TENANTS, SERVE_REQUESTS, SERVE_DRAIN = 4, 256, 64
+SERVE_ADD_ATOL = 1e-5
+SERVE_KERNELS = ("segment_reduce", "exchange", "gspmm")
+#: Lane widths at which segment_reduce and exchange are timed: a full
+#: micro-batch of the default buckets (32) and a middle one (8).
+SERVE_WIDTHS = (8, 32)
 
 
 def bf16_rel(n_layers: int) -> float:
@@ -678,6 +715,279 @@ def phase_gnn(g, plan):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The serve phase
+# ---------------------------------------------------------------------------
+
+def _lane_counts(r, i: int) -> tuple:
+    return (int(r.supersteps[i]), int(r.local_iters[i]),
+            bool(r.converged[i]))
+
+
+def _solo_equal(r, i: int, solo, what: str) -> None:
+    """Lane ``i`` of the batched result ``r`` is the solo run ``solo``:
+    the same state bit for bit and the same counters."""
+    require(torch.equal(r.state[i], solo.state),
+            f"{what}: lane {i} differs from its solo run")
+    require(_lane_counts(r, i) == (solo.supersteps, solo.local_iters,
+                                   solo.converged),
+            f"{what}: lane {i} counters {_lane_counts(r, i)} vs solo "
+            f"{(solo.supersteps, solo.local_iters, solo.converged)}")
+
+
+def _serve_plan_cache(g, owner):
+    """compile_plan_cached: a miss, then a hit that returns the same plan
+    with its three kernel layouts built."""
+    from repro_torch import engine as E
+    E.plan_cache_clear(reset_counters=True)
+    plan, t_miss = wall(lambda: E.compile_plan_cached(g, owner, K))
+    hit, t_hit = wall(lambda: E.compile_plan_cached(g, owner, K))
+    stats = E.plan_cache_stats()
+    built = [key for key in ("_segment_layout", "_gspmm_layout",
+                             "_exchange_layout") if key in hit.__dict__]
+    log({"phase": "serve.plan_cache", "miss_s": t_miss, "hit_s": t_hit,
+         "stats": stats, "layouts_built": built})
+    require(hit is plan, "compile_plan_cached: the hit is another object")
+    require(len(built) == 3, f"compile_plan_cached: layouts built {built}")
+    require((stats["misses"], stats["hits"]) == (1, 1),
+            f"plan cache counters {stats}")
+    return plan, {"miss_s": t_miss, "hit_s": t_hit}
+
+
+def _serve_multi_source(eng, sources) -> dict:
+    """multi_source_sssp over SERVE_LANES sources against one solo
+    engine_sssp per source: each lane bit-identical with equal counters;
+    one segment_reduce launch a sweep and one exchange a superstep of the
+    batch, so the launches follow the longest lane, not the sum."""
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels
+    kernels.reset_launches()
+    r, t_first = wall(lambda: E.multi_source_sssp(eng, sources))
+    batched = dict(kernels.LAUNCHES)
+    _, t_warm = wall(lambda: E.multi_source_sssp(eng, sources))
+    for s in sources[:2]:                 # warm the solo path
+        E.engine_sssp(eng, int(s))
+    kernels.reset_launches()
+    solo, t_solo = wall(lambda: [E.engine_sssp(eng, int(s))
+                                 for s in sources])
+    solo_launches = dict(kernels.LAUNCHES)
+    for i, one in enumerate(solo):
+        _solo_equal(r, i, one, "multi_source_sssp")
+    steps = [one.supersteps for one in solo]
+    sweeps = [one.local_iters for one in solo]
+    out = {"lanes": len(sources), "batched_first_s": t_first,
+           "batched_warm_s": t_warm, "solo_warm_s": t_solo,
+           "solo_over_batched": t_solo / t_warm,
+           "supersteps": {"max": max(steps), "sum": sum(steps)},
+           "local_iters": {"max": max(sweeps), "sum": sum(sweeps)},
+           "launches_batched": batched, "launches_solo": solo_launches}
+    log({"phase": "serve.multi_source_sssp", **out})
+    require(batched["exchange"] == max(steps),
+            f"batched exchange launches {batched['exchange']} != the "
+            f"longest lane's {max(steps)} supersteps")
+    require(max(sweeps) <= batched["segment_reduce"] < sum(sweeps),
+            f"batched segment_reduce launches {batched['segment_reduce']}"
+            f" not in [{max(sweeps)}, {sum(sweeps)})")
+    require(solo_launches["exchange"] == sum(steps)
+            and solo_launches["segment_reduce"] == sum(sweeps),
+            f"solo launches {solo_launches}")
+    return out
+
+
+def _serve_run_batched(eng, rng, n) -> dict:
+    """run_batched for bfs and wsssp at SERVE_SMALL lanes, cold and warm
+    (the block of a one-superstep batched run, two rows +inf), each lane
+    against its solo run."""
+    from repro_torch import engine as E
+    out = {}
+    for prog in (E.BFS, E.WEIGHTED_SSSP):
+        src = rng.choice(n, SERVE_SMALL, replace=False)
+        bkw = {"source": src}
+        r, t = wall(lambda: eng.run_batched(prog, bkw))
+        for i, s in enumerate(src):
+            _solo_equal(r, i, eng.run(prog, source=int(s)), prog.name)
+        block = eng.run_batched(prog, bkw, max_supersteps=1).state.clone()
+        block[list(SERVE_COLD_ROWS)] = float("inf")
+        w, t_warm = wall(lambda: eng.run_batched(prog, bkw,
+                                                 warm_state=block))
+        for i, s in enumerate(src):
+            solo = eng.run(prog, source=int(s)) if i in SERVE_COLD_ROWS \
+                else eng.run(prog, source=int(s), warm_state=block[i])
+            _solo_equal(w, i, solo, f"{prog.name} warm")
+        out[prog.name] = {"cold_s": t, "warm_s": t_warm,
+                          "supersteps_cold": r.supersteps.tolist(),
+                          "supersteps_warm": w.supersteps.tolist()}
+    log({"phase": "serve.run_batched", "lanes": SERVE_SMALL,
+         "cold_rows": list(SERVE_COLD_ROWS), **out})
+    return out
+
+
+def _serve_requests(G, rng, n, planes, count: int) -> list:
+    """A seeded stream of ``count`` requests from SERVE_TENANTS tenants,
+    in a seeded order: 27/32 of them sssp, bfs and wsssp, a quarter of
+    whose sources repeat an earlier request of the same program (cache
+    hits, or lanes shared in one micro-batch); the rest wcc, pagerank
+    (iters 20 and 30), ppr and labelprop on seeded planes, and one
+    gcn_layer."""
+    kinds, seen = [], {"sssp": [], "bfs": [], "wsssp": []}
+    for i in range(count * 27 // 32):
+        kind = ("sssp", "bfs", "wsssp")[i % 3]
+        if seen[kind] and rng.random() < 0.25:
+            s = seen[kind][int(rng.integers(len(seen[kind])))]
+        else:
+            s = int(rng.integers(n))
+            seen[kind].append(s)
+        kinds.append((kind, {"source": s}))
+    kinds.append(("gcn_layer", {"x": planes["x"], "weight": planes["w"]}))
+    others = [("wcc", {}), ("pagerank", {"iters": 20}),
+              ("pagerank", {"iters": 30}),
+              ("ppr", {"personalization": planes["p"]}),
+              ("labelprop", {"labels": planes["labels"]})]
+    while len(kinds) < count:
+        kinds.append(others[len(kinds) % len(others)])
+    return [G.QueryRequest(kinds[j][0], tenant=f"t{i % SERVE_TENANTS}",
+                           params=kinds[j][1])
+            for i, j in enumerate(rng.permutation(count))]
+
+
+def _solo_value(E, eng, g, req):
+    """The solo Engine run of one served query, as a host array."""
+    prm = req.params
+    deg = g.degrees()
+    run = {"sssp": lambda: eng.run(E.SSSP, source=prm.get("source")),
+           "bfs": lambda: eng.run(E.BFS, source=prm.get("source")),
+           "wsssp": lambda: eng.run(E.WEIGHTED_SSSP,
+                                    source=prm.get("source")),
+           "wcc": lambda: E.engine_wcc(eng),
+           "pagerank": lambda: E.engine_pagerank(eng, deg,
+                                                 prm.get("iters")),
+           "ppr": lambda: E.engine_personalized_pagerank(
+               eng, deg, np.array(prm.get("personalization")),
+               prm.get("iters")),
+           "labelprop": lambda: E.engine_label_propagation(
+               eng, np.array(prm.get("labels"))),
+           "gcn_layer": lambda: E.engine_gcn_layer(
+               eng, deg, np.array(prm.get("x")),
+               np.array(prm.get("weight")))}[req.kind]
+    return run().state.cpu().numpy()
+
+
+def phase_serve(g, owner):
+    """The serving path on the main phase's graph and DFEP owner: the plan
+    cache, batched multi-source SSSP against solo runs, warm-started
+    batches, then a GraphServer on the card answering a seeded request
+    stream from several tenants, every answer against a solo run."""
+    from repro_torch import engine as E
+    from repro_torch import gserve as G
+    from repro_torch.engine import kernels
+
+    plan, cache_t = _serve_plan_cache(g, owner)
+    n = g.n_vertices
+    rng = np.random.default_rng(SEED)
+    ms = _serve_multi_source(E.Engine(plan),
+                             rng.choice(n, SERVE_LANES, replace=False))
+    rb = _serve_run_batched(E.Engine(plan), rng, n)
+
+    dispatches = []
+
+    def counted(prog, lanes: int, fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        dispatches.append({"program": prog.name, "bucket": lanes,
+                           "launches": _delta(before, kernels.LAUNCHES)})
+        return out
+
+    class Counted(E.Engine):
+        """The engine, with the kernel launches of each dispatch logged."""
+        def dispatch(self, prog, *args, **kw):
+            return counted(prog, 1, lambda: E.Engine.dispatch(
+                self, prog, *args, **kw))
+
+        def dispatch_batched(self, prog, batched_kw, *args, **kw):
+            lanes = len(next(iter(batched_kw.values())))
+            return counted(prog, lanes, lambda: E.Engine.dispatch_batched(
+                self, prog, batched_kw, *args, **kw))
+
+    p = rng.random(n)
+    planes = {"x": E.ChannelValue(rng.normal(size=(n, E.GCN_F_IN))),
+              "w": E.ChannelValue(rng.normal(size=(E.GCN_F_IN,
+                                                   E.GCN_F_OUT))),
+              "p": E.ChannelValue(p / p.sum()),
+              "labels": E.ChannelValue(rng.permutation(n))}
+    reqs = _serve_requests(G, rng, n, planes, SERVE_REQUESTS)
+    srv = G.GraphServer(Counted(plan), g)
+    kernels.reset_launches()
+    out, t_serve = wall(lambda: srv.serve(reqs))
+    serve_launches = dict(kernels.LAUNCHES)
+    stats = srv.stats()
+    served = list(dispatches)
+    for name in SERVE_KERNELS:
+        require(serve_launches[name] > 0,
+                f"kernel {name} was not launched on the serve path")
+    for d in served:
+        ls = d["launches"]
+        require(ls["exchange"] > 0 and ls["segment_reduce"] + ls["gspmm"]
+                > 0 and ls["masked_update"] == 0,
+                f"a {d['program']} micro-batch of {d['bucket']} lanes ran "
+                f"no kernel: {ls}")
+    require([r.request.id for r in out] == [r.id for r in reqs]
+            and all(r.error is None for r in out), "serve: results")
+
+    t0 = time.perf_counter()
+    eng = E.Engine(plan)
+    solo, worst = {}, 0.0
+    for r in out:
+        key = r.request.cache_key()
+        if key not in solo:
+            solo[key] = _solo_value(E, eng, g, r.request)
+        want = solo[key]
+        require(r.value.shape == want.shape and r.value.dtype == want.dtype,
+                f"serve {r.request.kind}: {r.value.shape} vs {want.shape}")
+        if r.request.entry.oracle_atol:         # add programs
+            err = float(np.abs(r.value - want).max())
+            worst = max(worst, err)
+            require(err <= SERVE_ADD_ATOL, f"serve {r.request.kind}: max "
+                    f"abs {err} vs its solo run > {SERVE_ADD_ATOL}")
+        else:
+            require(np.array_equal(r.value, want),
+                    f"serve {r.request.kind} {r.request.params}: differs "
+                    "from its solo run")
+    solo_s = time.perf_counter() - t0
+
+    by_bucket, per = {}, {}
+    for d in served:
+        b = str(d["bucket"])
+        by_bucket[b] = by_bucket.get(b, 0) + 1
+        for k in ("segment_reduce", "exchange", "gspmm"):
+            per.setdefault(k, []).append(d["launches"][k])
+    drain_reqs = _serve_requests(G, np.random.default_rng(SEED + 1), n,
+                                 planes, SERVE_DRAIN)
+    for r in drain_reqs:
+        srv.submit(r)
+    drained, t_drain = wall(srv.drain)
+    require(len(drained) == SERVE_DRAIN
+            and all(r.error is None for r in drained), "drain: results")
+    srv.close()
+    result = {
+        "requests": SERVE_REQUESTS, "tenants": SERVE_TENANTS,
+        "serve_s": t_serve, "qps": SERVE_REQUESTS / t_serve,
+        "latency_p50_s": stats["latency_p50_s"],
+        "latency_p99_s": stats["latency_p99_s"],
+        "micro_batches": len(served), "micro_batches_by_bucket":
+            dict(sorted(by_bucket.items(), key=lambda kv: int(kv[0]))),
+        "cache_hits": stats["result_cache_hits"],
+        "launches_per_micro_batch": {k: {"mean": float(np.mean(v)),
+                                         "max": int(max(v))}
+                                     for k, v in per.items()},
+        "launches": serve_launches,
+        "add_max_abs_vs_solo": worst, "solo_checks": len(solo),
+        "solo_check_s": solo_s, "drain_requests": SERVE_DRAIN,
+        "drain_s": t_drain, "drain_qps": SERVE_DRAIN / t_drain}
+    log({"phase": "serve.server", **result})
+    return {"plan_cache": cache_t, "multi_source": ms, "run_batched": rb,
+            "server": result, "launches": serve_launches}
+
+
 def _delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
@@ -892,7 +1202,7 @@ def _greedy_agrees(tokens, logits, rel: float) -> tuple[bool, int]:
 
 def phase_lm(cfg=None, dev: str = "cuda"):
     """Mamba serving at full width and depth on the card (module docstring,
-    phase 5). Returns (the kernels' launches in ``generate``, the scan's
+    phase 6). Returns (the kernels' launches in ``generate``, the scan's
     inputs at the first and last layer of the prompt's prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1204,6 +1514,50 @@ def _exchange_timing(Kn, plan, gen, times) -> dict:
         out[label] = t
         del vals
     log({"phase": "kernels.exchange.timing", **out})
+    return out
+
+
+def _lane_timing(Kn, plan, gen, times) -> dict:
+    """segment_reduce and exchange (min) at the serve path's lane widths
+    (SERVE_WIDTHS): [K, Emax, S] messages and [K, Vmax, S] states, each
+    held exact against its plain version and timed beside its bound and a
+    library call (``scatter_reduce`` amin; the parent's exchange chain)."""
+    dev = plan.device
+    inf = float("inf")
+    rows = torch.arange(plan.k, device=dev)[:, None] * plan.v_max
+    out = {"segment_reduce": {}, "exchange": {}}
+    for s in SERVE_WIDTHS:
+        shape = (plan.k, plan.e_max, s)
+        msgs = torch.where(torch.rand(shape, generator=gen, device=dev)
+                           < 0.2, inf, torch.rand(shape, generator=gen,
+                                                  device=dev) * 30)
+        idx = (rows + plan.edge_tgt.long()).reshape(-1, 1).expand(-1, s)
+        masked = torch.where(plan.emask[:, :, None], msgs, inf).reshape(-1, s)
+        ident = torch.full((plan.k * plan.v_max, s), inf, device=dev)
+        require(torch.equal(Kn.segment_reduce(plan, msgs, "min"),
+                            Kn.segment_reduce_ref(plan, msgs, "min")),
+                f"segment_reduce min at F={s} is not exact")
+        t = times(iters=10,
+                  kernel=lambda: Kn.segment_reduce(plan, msgs, "min"),
+                  plain=lambda: Kn.segment_reduce_ref(plan, msgs, "min"),
+                  library=lambda: torch.scatter_reduce(ident, 0, idx, masked,
+                                                       "amin"))
+        t["bound_ms"], t["bound_by"] = _seg_bound(plan, s)
+        out["segment_reduce"][f"s{s}"] = t
+        del msgs, idx, masked, ident
+        vals = _exchange_values(plan, gen, s, "min")
+        got = Kn.exchange(plan, vals, "min")
+        require(torch.equal(got, Kn.exchange_layout_ref(plan, vals, "min"))
+                and torch.equal(got, Kn.exchange_ref(plan, vals, "min")),
+                f"exchange min at F={s} is not exact")
+        t = times(iters=10, kernel=lambda: Kn.exchange(plan, vals, "min"),
+                  plain=lambda: Kn.exchange_ref(plan, vals, "min"),
+                  library=lambda: Kn.exchange_ref(plan, vals, "min",
+                                                  update=Kn.masked_update))
+        t["bound_ms"], t["bound_by"] = _exchange_bound(plan, s)
+        out["exchange"][f"s{s}"] = t
+        del vals, got
+    log({"phase": "kernels.lanes.timing", **out})
     return out
 
 
@@ -1763,7 +2117,8 @@ def _selective_scan_section(captured, gen, times) -> dict:
 
 
 def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
-                  etsch_launches, sssp_state, lm_launches, lm_inputs):
+                  etsch_launches, sssp_state, lm_launches, lm_inputs,
+                  serve_launches):
     from repro_torch.engine import kernels as Kn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1881,6 +2236,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     log({"phase": "kernels.timing", "segment_reduce": seg_t,
          "masked_update": mu_t, "masked_update_f8": mu8_t})
     ex_t = _exchange_timing(Kn, plan, gen, times)
+    lanes_t = _lane_timing(Kn, plan, gen, times)
     gs_err = _gspmm_checks(Kn, plan, patched, gen)
     gs_t = _gspmm_timing(Kn, plan, gen, times)
     lc = _lane_cumsum_section(g, owner, gen, times)
@@ -1905,7 +2261,9 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "add_ms": seg_t["add"]["kernel_ms"],
          "add_plain_ms": seg_t["add"]["plain_ms"],
          "add_library_ms": seg_t["add"]["library_ms"],
-         "layout": layouts["plan"]},
+         "layout": layouts["plan"],
+         "serve_launches": serve_launches["segment_reduce"],
+         "lanes": lanes_t["segment_reduce"]},
         {"name": "exchange", "route": "cuda",
          "source": "src/repro_torch/csrc/replica_exchange.cu",
          "replaces": "src/repro/engine/kernels.py:394",
@@ -1924,6 +2282,8 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
              "kernel_eager_ms", "library_eager_ms", "turns")}
             for label, _, _ in EXCHANGE_CASES},
          "layout": dict(Kn.exchange_layout(plan).stats()),
+         "serve_launches": serve_launches["exchange"],
+         "lanes": lanes_t["exchange"],
          # the glob-form update, kept for a cross-device exchange; no
          # single-device path launches it
          "masked_update": {
@@ -1939,6 +2299,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "source": "src/repro_torch/csrc/gspmm.cu",
          "replaces": "src/repro/engine/kernels.py:233",
          "launches": gnn_launches["gspmm"],
+         "serve_launches": serve_launches["gspmm"],
          "max_abs_err": gs_err["plan.f8.scalar.add"],
          "ms": gs_t["f8"]["kernel_ms"], "plain_ms": gs_t["f8"]["plain_ms"],
          "bound_ms": gs_t["f8"]["bound_ms"],
@@ -2054,12 +2415,13 @@ def main() -> int:
     card = phase_device()
     g, owner, plan, launches, sssp_state = phase_main()
     gnn_launches = phase_gnn(g, plan)
+    serve = phase_serve(g, owner)
     part, road_part, etsch_launches = phase_etsch(g, owner, plan,
                                                   sssp_state)
     lm_launches, lm_inputs = phase_lm()
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
-                                lm_launches, lm_inputs)
+                                lm_launches, lm_inputs, serve["launches"])
     del lm_inputs
     phase_cpu_equal()
     _lm_cpu_equal()

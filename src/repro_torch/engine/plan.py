@@ -29,14 +29,21 @@ keeps each slot's run start for the layouts, and
 ``engine.kernels.segment_layout``, ``gspmm_layout`` and ``exchange_layout``
 keep ``segment_reduce``'s, ``gspmm``'s and ``exchange``'s layouts (built
 with the plan when the plan is made on the card, so no query pays them).
+
+:func:`compile_plan_cached` memoizes plans by graph and assignment content
+and by device, in a process-wide LRU of 32 (``plan_cache_stats``,
+``plan_cache_clear``), as the reference does.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..core.graph import Graph, edge_weights, resolve_device
 from .kernels import exchange_layout, gspmm_layout
 
@@ -112,6 +119,14 @@ class PartitionPlan:
     def sum_local_vertices(self) -> int:
         return self._memo("_sum_local_vertices",
                           lambda: int(self.n_local.sum()))
+
+    @property
+    def edge_slot_hwm(self) -> int:
+        """1 + the highest graph edge slot any live half-edge references —
+        the least row count an edge channel plane must supply (one host
+        read per plan instance)."""
+        return self._memo("_edge_slot_hwm", lambda: int(
+            torch.where(self.emask, self.edge_slot, -1).max()) + 1)
 
     @property
     def run_start(self) -> torch.Tensor:
@@ -281,3 +296,77 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
         gspmm_layout(plan)          # and, under it, segment_layout(plan)
         exchange_layout(plan)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Content-addressed plan cache: keyed by Graph.fingerprint() + assignment
+# digest, NOT object identity — logically equal (graph, owner, k) triples
+# share one compiled plan even across Graph/owner array rebuilds. The key
+# also holds the device: a plan on the card is never handed to a caller
+# that asked for the CPU, nor the reverse.
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_PLAN_CACHE_MAX = 32    # LRU bound: plans are multi-MB of device tensors
+# hits mean a query re-used an already-compiled plan; a climbing eviction
+# count under steady load means the working set exceeds _PLAN_CACHE_MAX
+_PLAN_CACHE_COUNTERS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def _owner_digest(g: Graph, owner) -> str:
+    """Digest of the assignment in canonical (sorted-edge-key) order, so the
+    key is invariant under slot permutation, like Graph.fingerprint()."""
+    u, v = g.as_numpy()
+    own = _to_numpy(owner)[g.edge_mask.cpu().numpy()].astype(np.int32)
+    order = np.argsort(u.astype(np.int64) * g.n_vertices + v)
+    return hashlib.sha256(own[order].tobytes()).hexdigest()
+
+
+def compile_plan_cached(g: Graph, owner, k: int, *, edge_slack: int = 0,
+                        vertex_slack: int = 0, epoch: int = 0,
+                        device=None) -> PartitionPlan:
+    """Memoized :func:`compile_plan`, keyed by graph/assignment *content*
+    and the device. A hit returns the same plan object, its kernels'
+    layouts already built (on the card ``compile_plan`` builds them).
+
+    Caveat for edge property channels: the key is slot-order invariant but
+    ``plan.edge_slot`` is not, so two content-equal graphs whose live
+    edges occupy different slots would read an [E_pad, F] plane
+    differently; use this entry point for static graphs (where slot order
+    is canonical) or vertex-channel / channel-free workloads.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (g.fingerprint(), _owner_digest(g, owner), int(k),
+           int(edge_slack), int(vertex_slack), int(epoch), str(dev))
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        _PLAN_CACHE_COUNTERS["misses"] += 1
+        plan = compile_plan(g, owner, k, edge_slack=edge_slack,
+                            vertex_slack=vertex_slack, epoch=epoch,
+                            device=dev)
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+            _PLAN_CACHE.popitem(last=False)
+            _PLAN_CACHE_COUNTERS["evictions"] += 1
+    else:
+        _PLAN_CACHE_COUNTERS["hits"] += 1
+        _PLAN_CACHE.move_to_end(key)
+    return plan
+
+
+def plan_cache_stats() -> dict:
+    """Snapshot of the plan cache's hit/miss/eviction counters + size."""
+    return dict(_PLAN_CACHE_COUNTERS, size=len(_PLAN_CACHE),
+                max_size=_PLAN_CACHE_MAX)
+
+
+_obs.get().register_provider("plan_cache", plan_cache_stats)
+
+
+def plan_cache_clear(reset_counters: bool = False) -> None:
+    _PLAN_CACHE.clear()
+    if reset_counters:
+        for name in _PLAN_CACHE_COUNTERS:
+            _PLAN_CACHE_COUNTERS[name] = 0

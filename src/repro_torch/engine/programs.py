@@ -20,11 +20,23 @@ counterparts of ``repro.engine.programs``:
 
 Programs are module-level constants; per-query values (source vertex,
 degree vector, channel planes) travel in the ``ctx`` dict.
+``multi_source_sssp`` answers a batch of sources in one superstep loop
+(``Engine.run_batched``), the serving-oriented batched-query path.
+
+Every program registers once in ``engine.registry`` at the bottom of this
+module, through the same public ``registry.register`` call user programs
+use, with the reference's params, resources, roles and tolerances; the
+oracles are the port's own (``core/algorithms``). The serving stack
+(``repro_torch.gserve``) derives request validation, batching, caching and
+dispatch from those entries.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import algorithms as _alg
+from . import registry
 from .kernels import gather_edge_channel, gather_vertex_channel
 from .runtime import EdgeProgram, Engine, EngineResult
 from .state import StateSpec
@@ -38,7 +50,9 @@ DAMPING = 0.85
 # ---------------------------------------------------------------------------
 
 def _sssp_prepare(plan, kw):
-    return {"source": int(kw["source"])}
+    # a batched dispatch hands each lane its source as a 0-d tensor
+    src = kw["source"]
+    return {"source": src if isinstance(src, torch.Tensor) else int(src)}
 
 
 def _sssp_init(plan, ctx):
@@ -385,6 +399,13 @@ def engine_bfs(engine: Engine, source: int) -> EngineResult:
     return engine.run(BFS, source=int(source))
 
 
+def multi_source_sssp(engine: Engine, sources) -> EngineResult:
+    """Batched multi-source distances: one superstep loop answers every
+    query; ``result.state`` is [S, V], ``supersteps`` etc. are [S]."""
+    return engine.run_batched(
+        SSSP, {"source": torch.as_tensor(sources).to(torch.int32)})
+
+
 def engine_label_propagation(engine: Engine, labels) -> EngineResult:
     """Min-label propagation over an external [V] / [V, 1] label plane."""
     return engine.run(LABELPROP, labels=labels)
@@ -406,3 +427,110 @@ def engine_gcn_layer(engine: Engine, degrees: torch.Tensor, x,
 def engine_kge_score(engine: Engine, entity, relation) -> EngineResult:
     """Per-vertex DistMult triple-score mass; ``result.state`` is [V]."""
     return engine.run(KGE_SCORE, entity=entity, relation=relation)
+
+
+# ---------------------------------------------------------------------------
+# Registry entries — the single declaration each program ever needs. The
+# whole serving stack (request validation, batch/cache keys, dispatch,
+# tests) derives from these; none of it names a program again.
+# ---------------------------------------------------------------------------
+
+def _host(values) -> np.ndarray:
+    """An oracle's answer as a host array."""
+    if isinstance(values, torch.Tensor):
+        return values.cpu().numpy()
+    return np.asarray(values)
+
+
+def _non_negative(v):
+    if v < 0:
+        raise ValueError(f"iters must be >= 0, got {v}")
+
+
+registry.register(
+    "sssp", SSSP,
+    params=[registry.ParamSpec("source", int, batchable=True)],
+    oracle=lambda g, source: _host(_alg.reference_sssp(g, source)[0]),
+)
+
+registry.register(
+    "wcc", WCC,
+    oracle=lambda g: _host(_alg.reference_cc(g)[0]),
+)
+
+registry.register(
+    "pagerank", PAGERANK,
+    params=[registry.ParamSpec("iters", int, default=30, role="supersteps",
+                               validate=_non_negative)],
+    resources={"degrees": lambda g: g.degrees()},
+    oracle=lambda g, iters: _host(_alg.reference_pagerank(g, iters=iters)),
+    oracle_atol=1e-5,
+)
+
+registry.register(
+    "wsssp", WEIGHTED_SSSP,
+    params=[registry.ParamSpec("source", int, batchable=True)],
+    oracle=_alg.reference_weighted_sssp,
+)
+
+registry.register(
+    "bfs", BFS,
+    params=[registry.ParamSpec("source", int, batchable=True)],
+    oracle=_alg.reference_bfs,
+)
+
+registry.register(
+    "labelprop", LABELPROP,
+    params=[registry.ParamSpec("labels", float, role="channel",
+                               channel="vertex", features=1)],
+    oracle=lambda g, labels: _alg.reference_label_propagation(
+        g, np.asarray(labels)),
+)
+
+registry.register(
+    "ppr", PPR,
+    params=[registry.ParamSpec("personalization", float, role="channel",
+                               channel="vertex", features=1),
+            registry.ParamSpec("iters", int, default=30, role="supersteps",
+                               validate=_non_negative)],
+    resources={"degrees": lambda g: g.degrees()},
+    oracle=lambda g, personalization, iters:
+        _alg.reference_personalized_pagerank(g, np.asarray(personalization),
+                                             iters=iters),
+    oracle_atol=1e-5,
+)
+
+
+def _gcn_weight_rows(cv):
+    # the dense channel's plan-free shape still has a program contract:
+    # rows must match the layer's input width, or the finalize matmul
+    # would fail deep inside a dispatch instead of at the server door
+    if cv.shape[0] != GCN_F_IN:
+        raise ValueError(
+            f"gcn_layer.weight is the [F_in, F_out] = "
+            f"[{GCN_F_IN}, {GCN_F_OUT}] layer matrix, got {cv.shape}")
+
+
+registry.register(
+    "gcn_layer", GCN_LAYER,
+    params=[registry.ParamSpec("x", float, role="channel",
+                               channel="vertex", features=GCN_F_IN),
+            registry.ParamSpec("weight", float, role="channel",
+                               channel="dense", features=GCN_F_OUT,
+                               validate=_gcn_weight_rows)],
+    resources={"degrees": lambda g: g.degrees()},
+    oracle=lambda g, x, weight: _alg.reference_gcn_layer(
+        g, np.asarray(x), np.asarray(weight)),
+    oracle_atol=1e-5,
+)
+
+registry.register(
+    "kge_score", KGE_SCORE,
+    params=[registry.ParamSpec("entity", float, role="channel",
+                               channel="vertex", features=KGE_F),
+            registry.ParamSpec("relation", float, role="channel",
+                               channel="edge", features=KGE_F)],
+    oracle=lambda g, entity, relation: _alg.reference_kge_score(
+        g, np.asarray(entity), np.asarray(relation)),
+    oracle_atol=1e-5,
+)

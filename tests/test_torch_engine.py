@@ -206,7 +206,8 @@ def test_package_imports_no_jax_and_no_reference():
                 "repro_torch.core.metrics", "repro_torch.core.baselines",
                 "repro_torch.configs", "repro_torch.models.ssm",
                 "repro_torch.models.lm", "repro_torch.serve.serve_step",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.engine.registry",
+                "repro_torch.obs.recorder", "repro_torch.gserve.server"):
         assert mod in seen["mods"]
 
 

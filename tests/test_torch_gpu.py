@@ -966,3 +966,67 @@ def test_mamba_serving_on_card_matches_cpu():
     toks = TSS.Engine(cfg, on_card, s_max=32).generate(prompts.to(dev), 5)
     assert toks.shape == (3, 5) and toks.device.type == "cuda"
     assert TO.LAUNCHES["selective_scan"] - before == 5 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the serving path: lanes on the kernels' feature axis
+# ---------------------------------------------------------------------------
+
+LANE_WIDTHS = (8, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", LANE_WIDTHS)
+def test_lane_widths_match_plain_on_card(lanes):
+    """segment_reduce and exchange (min) at the serving path's lane widths
+    ([K, Emax, S] messages, [K, Vmax, S] states) equal their plain
+    versions bit for bit, one launch per call, on the fresh, patched and
+    hub plans."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(lanes)
+    plans = dict(_plans(dev), hub=_hub_plan(dev))
+    for name, plan in plans.items():
+        for rows, fn, ref in (
+                (plan.e_max, TK.segment_reduce, TK.segment_reduce_ref),
+                (plan.v_max, TK.exchange, TK.exchange_ref)):
+            shape = (plan.k, rows, lanes)
+            x = torch.where(torch.rand(shape, generator=gen, device=dev)
+                            < 0.2, float("inf"),
+                            torch.rand(shape, generator=gen, device=dev) * 30)
+            before = dict(TK.LAUNCHES)
+            got = fn(plan, x, "min")
+            want = ref(plan, x, "min")
+            torch.cuda.synchronize()
+            assert sum(TK.LAUNCHES.values()) == sum(before.values()) + 1
+            assert torch.equal(got, want), (name, fn.__name__)
+
+
+@pytest.mark.gpu
+def test_run_batched_on_card_equals_solo():
+    """Batched sssp, bfs and wsssp on the card: every lane equals its solo
+    run on the card (state bit for bit, equal counters), under a
+    superstep cap, a local cap and a warm block with +inf rows; one
+    exchange launch a superstep of the batch."""
+    dev = _card()
+    plan = _plans(dev)["fresh"]
+    eng = TE.Engine(plan)
+    src = np.array([0, 5, 17, 5, 120, 250, 3, 77], np.int32)
+    for prog in (TE.SSSP, TE.BFS, TE.WEIGHTED_SSSP):
+        for caps in ({}, {"max_supersteps": 2}, {"max_local_iters": 1}):
+            before = TK.LAUNCHES["exchange"]
+            r = eng.run_batched(prog, {"source": src}, **caps)
+            assert TK.LAUNCHES["exchange"] - before == int(r.supersteps.max())
+            for i, s in enumerate(src):
+                one = eng.run(prog, source=int(s), **caps)
+                assert torch.equal(r.state[i], one.state), (prog.name, caps)
+                assert (int(r.supersteps[i]), int(r.local_iters[i]),
+                        bool(r.converged[i])) == (
+                    one.supersteps, one.local_iters, one.converged)
+        block = eng.run_batched(prog, {"source": src},
+                                max_supersteps=1).state.clone()
+        block[[1, 4]] = float("inf")
+        w = eng.run_batched(prog, {"source": src}, warm_state=block)
+        for i, s in enumerate(src):
+            one = eng.run(prog, source=int(s), warm_state=block[i])
+            assert torch.equal(w.state[i], one.state), (prog.name, i)
+            assert int(w.supersteps[i]) == one.supersteps

@@ -58,7 +58,42 @@ non-zero with no "ok" line):
               micro-batch through the kernels; ``serve`` and ``drain`` (a
               second stream of SERVE_DRAIN) timed. The counters are zeroed
               just before ``serve`` and read just after.
-5. etsch    — the paper's own dense ETSCH framework, metrics and baselines
+5. stream   — streaming maintenance on the main phase's graph and DFEP
+              owner, through the user entry points: ``StreamSession(g,
+              StreamConfig(k=16, chunk_size=256), owner=owner)`` with the
+              default slack and an ``AdaptiveCompactionPolicy``, kge_score's
+              relation plane bound to the session (``bind_channel``, kept
+              across patches), the recorder on, then STREAM_BATCHES batches
+              of STREAM_FRAC of |E| deletes of live edges and as many
+              inserts of seeded vertex pairs each. The first is applied
+              while a ``GraphServer.from_session`` serves STREAM_REQUESTS
+              seeded requests (one micro-batch pumped on the old plan, the
+              rest drained on the new one; each answer bit for bit a solo
+              run on the plan it was served from). Before the last batch the
+              drift threshold is set below any drift, so its check fires a
+              re-auction of the default radius; then a trickle of
+              STREAM_TRICKLE deletes and as many inserts, with the threshold
+              below any drift and the radius 0, fires a local re-auction
+              that must come out as a patch that moves edges (each
+              re-auction's rounds, ms a round and lane_cumsum launches
+              logged). After each batch: SSSP(0) and WCC equal to scipy on
+              ``session.graph()`` and PageRank(30) within STREAM_PR_ATOL and
+              PR_ORACLE_RTOL of its float64 oracle, each query launching
+              segment_reduce and one exchange a superstep; the same queries
+              on a plan recompiled from the same graph (first and warm
+              times); segment_reduce's device time on both plans; the
+              kernels against their plain versions on the patched plan
+              (segment_reduce min exact and add, the exchange min exact,
+              gcn_layer's gspmm); the apply wall time, the ms of each
+              ``stream.patch_plan`` and ``stream.layouts`` span the
+              recorder took, the segment layout's counts (append slots,
+              the longest append run of one target) and the replication
+              factor against ``rf_base``. Then ``idle_tick`` must compact
+              (an epoch) and the queries hold after it. The counters are
+              zeroed before the phase; segment_reduce, exchange, gspmm and
+              lane_cumsum must rise on the path (checks against plain
+              versions not counted), masked_update must not.
+6. etsch    — the paper's own dense ETSCH framework, metrics and baselines
               on the main phase's graph and DFEP owner, through the user
               entry points: ``etsch.compile_partitioning``, then
               ``etsch_sssp(0)`` (equal to scipy and to the main phase's
@@ -79,7 +114,7 @@ non-zero with no "ok" line):
               ``etsch_sssp`` and minplus_sweep in ``evaluate``; each
               problem's line logs its minplus_sweep launches by state
               rows ([K·V], [K·8·V], [V]).
-6. lm       — Mamba serving at falcon-mamba-7b's full width and depth
+7. lm       — Mamba serving at falcon-mamba-7b's full width and depth
               (64 layers, d_model 4096, d_inner 8192, d_state 16, vocab
               65,024): ``lm.init_params`` on the card from a seeded
               generator (float32, 27.1 GiB), then B = LM_BATCH seeded
@@ -95,7 +130,7 @@ non-zero with no "ok" line):
               must fall outside it. The scan's inputs at the first and the
               last layer of the prompt's prefill are kept for the kernels
               phase, and the model is freed before it.
-7. kernels  — each kernel against its plain version on the main path's plan
+8. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
@@ -136,13 +171,17 @@ non-zero with no "ok" line):
               with per-feature weights, also with only its largest hub run
               live and with no live slot (the difference is the hub run's
               time); prints one
-              ``{"kernels": [...]}`` line. selective_scan is held against
+              ``{"kernels": [...]}`` line (segment_reduce, exchange, gspmm
+              and lane_cumsum rows also carry the stream phase's launches,
+              ``stream_launches``; segment_reduce's ``stream`` lists its
+              device ms per batch on the patched and the recompiled plan,
+              lane_cumsum's ``reauction`` both re-auctions' rounds). selective_scan is held against
               its plain loop (y and h_last within SCAN_REL) on seeded
               inputs at the prefill shape with a zero and a random h0, at
               S = 1, and on the lm phase's captured layer inputs, and timed
               at the prefill shape and at S = 1, each beside its bound
               (bytes, float32 operations, and exps at the SFUs' rate).
-8. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
+9. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
@@ -261,6 +300,18 @@ SERVE_KERNELS = ("segment_reduce", "exchange", "gspmm")
 #: Lane widths at which segment_reduce and exchange are timed: a full
 #: micro-batch of the default buckets (32) and a middle one (8).
 SERVE_WIDTHS = (8, 32)
+#: The stream phase: update batches of STREAM_FRAC of |E| deletes and as
+#: many inserts each (benchmarks/fig_stream.py:54-57's default batch), the
+#: trickle after them (STREAM_TRICKLE deletes and as many inserts: its
+#: radius-0 re-auction region stays a few thousand edges, so its moves fit
+#: the partitions' slack and come out as a patch), the seeded requests
+#: served across the first patch, and PageRank(30) against its float64
+#: oracle within STREAM_PR_ATOL (the reference's oracle bound) beside
+#: PR_ORACLE_RTOL.
+STREAM_BATCHES, STREAM_FRAC, STREAM_REQUESTS = 4, 0.04, 56
+STREAM_TRICKLE = 1024
+STREAM_PR_ATOL = 1e-5
+STREAM_KERNELS = ("segment_reduce", "exchange", "gspmm", "lane_cumsum")
 
 
 def bf16_rel(n_layers: int) -> float:
@@ -868,7 +919,10 @@ def _solo_value(E, eng, g, req):
                eng, np.array(prm.get("labels"))),
            "gcn_layer": lambda: E.engine_gcn_layer(
                eng, deg, np.array(prm.get("x")),
-               np.array(prm.get("weight")))}[req.kind]
+               np.array(prm.get("weight"))),
+           "kge_score": lambda: E.engine_kge_score(
+               eng, np.array(prm.get("entity")),
+               np.array(prm.get("relation")))}[req.kind]
     return run().state.cpu().numpy()
 
 
@@ -986,6 +1040,347 @@ def phase_serve(g, owner):
     log({"phase": "serve.server", **result})
     return {"plan_cache": cache_t, "multi_source": ms, "run_batched": rb,
             "server": result, "launches": serve_launches}
+
+
+# ---------------------------------------------------------------------------
+# The stream phase
+# ---------------------------------------------------------------------------
+
+def _launch_counts() -> dict:
+    """Every kernel's launch count so far (engine kernels and ops)."""
+    from repro_torch.engine import kernels
+    from repro_torch.kernels import ops
+    return {**kernels.LAUNCHES, **ops.LAUNCHES}
+
+
+class _PathLaunches:
+    """Launches made by the path itself: ``run(fn)`` adds the launches
+    made inside ``fn``; checks against a plain version run outside it."""
+
+    def __init__(self):
+        self.total: dict = {}
+
+    def run(self, fn):
+        before = _launch_counts()
+        out = fn()
+        for k, n in _delta(before, _launch_counts()).items():
+            self.total[k] = self.total.get(k, 0) + n
+        return out
+
+
+def _stream_updates(sess, rng, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """One batch as benchmarks/fig_stream.py makes it: ``n`` deletes of
+    live edges and ``n`` inserts of seeded vertex pairs."""
+    u, v = sess.graph().as_numpy()
+    idx = rng.choice(len(u), size=n, replace=False)
+    dels = np.stack([u[idx], v[idx]], 1)
+    ins = rng.integers(0, sess.sg.n_vertices, size=(n, 2))
+    return ins, dels
+
+
+def _stream_oracles(g) -> dict:
+    """The host oracles of one graph snapshot: SSSP(0), WCC, PageRank(30)."""
+    csr = csr_of(g)
+    return {"sssp": sssp_oracle(csr, 0), "wcc": wcc_oracle(csr),
+            "pagerank": pagerank_oracle(g)}
+
+
+def _stream_queries(E, eng, g, want: dict, path, what: str) -> dict:
+    """SSSP(0) and WCC bit-identical to scipy, PageRank(30) within
+    STREAM_PR_ATOL and PR_ORACLE_RTOL of its float64 oracle (``want``:
+    :func:`_stream_oracles`), each query launching segment_reduce and one
+    exchange a superstep; first and warm SSSP timed."""
+    from repro_torch.engine import kernels
+    out = {}
+    for name, run in (("sssp", lambda: E.engine_sssp(eng, 0)),
+                      ("sssp_warm", lambda: E.engine_sssp(eng, 0)),
+                      ("wcc", lambda: E.engine_wcc(eng)),
+                      ("pagerank", lambda: E.engine_pagerank(
+                          eng, g.degrees(), iters=30))):
+        before = dict(kernels.LAUNCHES)
+        r, t = wall(lambda: path.run(run))
+        ls = _delta(before, kernels.LAUNCHES)
+        require(ls["segment_reduce"] > 0 and ls["exchange"] == r.supersteps
+                and ls["masked_update"] == 0,
+                f"{what} {name}: launches {ls}")
+        out[name] = {"wall_s": t, "supersteps": r.supersteps,
+                     "local_iters": r.local_iters, "state": r.state}
+    require(np.array_equal(out["sssp"]["state"].cpu().numpy(),
+                           want["sssp"]), f"{what}: SSSP != scipy")
+    require(np.array_equal(out["wcc"]["state"].cpu().numpy(),
+                           want["wcc"]), f"{what}: WCC != scipy")
+    pr = out["pagerank"]["state"]
+    err = float(np.abs(pr.cpu().numpy() - want["pagerank"]).max())
+    rel = max_rel(pr, want["pagerank"])
+    require(err <= STREAM_PR_ATOL and rel <= PR_ORACLE_RTOL,
+            f"{what}: PageRank vs float64 oracle abs {err}, rel {rel}")
+    for r in out.values():
+        r.pop("state")
+    out["pagerank"].update(max_abs_vs_oracle=err, max_rel_vs_oracle=rel)
+    return out
+
+
+def _stream_kernel_checks(Kn, E, plan, g, gen, x, w) -> dict:
+    """The kernels on a patched plan against their plain versions on it:
+    segment_reduce min exact and add within SEG_ADD_RTOL, the exchange
+    min exact, gcn_layer (gspmm) within GNN_PLAIN_REL of its largest
+    value; none may fall back (each call must launch)."""
+    msgs = torch.rand(plan.emask.shape, generator=gen, device=plan.device)
+    vals = torch.rand((plan.k, plan.v_max), generator=gen,
+                      device=plan.device)
+    before = dict(Kn.LAUNCHES)
+    got = Kn.segment_reduce(plan, msgs * 30, "min")
+    require(torch.equal(got, Kn.segment_reduce_ref(plan, msgs * 30, "min")),
+            "stream: segment_reduce min on the patched plan is not exact")
+    add = Kn.segment_reduce(plan, msgs, "add")
+    ref = Kn.segment_reduce_ref(plan, msgs, "add")
+    rel = float(((add - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    require(rel <= SEG_ADD_RTOL, f"stream: segment_reduce add rel {rel}")
+    ex = Kn.exchange(plan, vals, "min")
+    require(torch.equal(ex, Kn.exchange_ref(plan, vals, "min")),
+            "stream: exchange min on the patched plan is not exact")
+    kern = E.engine_gcn_layer(E.Engine(plan), g.degrees(), x, w).state
+    plain = E.engine_gcn_layer(E.Engine(plan, use_kernels=False),
+                               g.degrees(), x, w).state
+    scale = float(plain.abs().max())
+    gerr = float((kern - plain).abs().max())
+    require(gerr <= GNN_PLAIN_REL * scale,
+            f"stream: gcn_layer kernel vs plain {gerr} > {GNN_PLAIN_REL} x "
+            f"{scale}")
+    ls = _delta(before, Kn.LAUNCHES)
+    require(ls["segment_reduce"] >= 2 and ls["exchange"] >= 1
+            and ls["gspmm"] >= 1, f"stream: kernel checks launched {ls}")
+    return {"segment_reduce_add_rel": rel, "gcn_layer_max_abs": gerr,
+            "gcn_layer_scale": scale}
+
+
+def _stream_server(G, E, sess, rng, ins, dels, entity, path) -> dict:
+    """A GraphServer.from_session answering a seeded request stream across
+    a patch: a micro-batch pumped on the old plan, the batch applied, the
+    rest drained on the new one; each answer bit for bit a solo run on the
+    plan it was served from (add programs too: the same kernels on the
+    same plan sum in the same order, and a PageRank from the other plan
+    differs by far less than any tolerance would let through)."""
+    engines = {sess.version: (sess.engine, sess.graph())}
+    unsubscribe = sess.subscribe(lambda s, event: engines.setdefault(
+        s.version, (s.engine, s.graph())))
+    srv = G.GraphServer.from_session(sess)
+    n = sess.sg.n_vertices
+    reqs = []
+    for i in range(STREAM_REQUESTS):
+        kind = ("sssp", "bfs", "wsssp", "sssp", "wcc", "pagerank",
+                "kge_score")[i % 7]
+        params = {"source": int(rng.integers(n))} \
+            if kind in ("sssp", "bfs", "wsssp") else {}
+        if kind == "pagerank":
+            params["iters"] = 20
+        if kind == "kge_score":      # relation: the session-bound plane
+            params["entity"] = entity
+        reqs.append(G.QueryRequest(kind, tenant=f"t{i % SERVE_TENANTS}",
+                                   params=params))
+    for r in reqs:
+        srv.submit(r)
+    before = _launch_counts()
+    first, t_pump = wall(lambda: path.run(srv.pump))
+    stats, t_apply = wall(lambda: path.run(lambda: sess.apply(
+        inserts=ins, deletes=dels)))
+    rest, t_drain = wall(lambda: path.run(srv.drain))
+    launches = _delta(before, _launch_counts())
+    out = first + rest
+    unsubscribe()
+    srv.close()
+    require(len(out) == len(reqs) and all(r.error is None for r in out),
+            "stream server: results")
+    versions = sorted({r.version for r in out})
+    require(len(versions) == 2, f"stream server: served versions {versions}")
+    solo = {}
+    for r in out:
+        eng, g = engines[r.version]
+        key = (r.version, r.request.cache_key())
+        if key not in solo:
+            solo[key] = _solo_value(E, eng, g, r.request)
+        if not np.array_equal(r.value, solo[key]):
+            require(False, f"stream server {r.request.kind} "
+                    f"{r.request.params} (version {r.version}): differs from"
+                    " its solo run")
+    return stats, t_apply, {
+        "requests": len(reqs), "pumped_old_plan": len(first),
+        "versions": versions, "pump_s": t_pump, "drain_s": t_drain,
+        "launches": launches, "solo_checks": len(solo),
+        "plan_buffer_swaps": srv.stats()["plan_buffer_swaps"]}
+
+
+def _spans(name: str) -> list:
+    """The recorder's spans of one name since its last reset, oldest
+    first, as (ms, args)."""
+    from repro_torch import obs
+    return [(e["dur"] / 1e3, e["args"]) for e in obs.get().events()
+            if e["name"] == name and e["ph"] == "X"]
+
+
+def phase_stream(g, owner):
+    """Streaming maintenance on the card: a session over the main phase's
+    graph and DFEP owner, STREAM_BATCHES update batches patched in (the
+    first served across by a GraphServer, the last firing a re-auction of
+    the default radius), a trickle whose radius-0 re-auction must come
+    out as a patch of moves, one idle compaction epoch; queries exact and
+    kernels held against their plain versions after each step."""
+    import dataclasses as dc
+    from repro_torch import engine as E
+    from repro_torch import gserve as G
+    from repro_torch import obs
+    from repro_torch import stream as S
+    from repro_torch.engine import kernels as Kn
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    Kn.reset_launches()
+    ops.reset_launches()
+    path = _PathLaunches()
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n = g.n_vertices
+    # the session's default slack, for a recompiled plan of equal shape
+    slack = (max(2 * 256, g.n_edges // (4 * K)), max(256, n // (2 * K)))
+    policy = S.AdaptiveCompactionPolicy(headroom_batches=3.0)
+    sess, t_init = wall(lambda: path.run(lambda: S.StreamSession(
+        g, S.StreamConfig(k=K, chunk_size=256), owner=owner,
+        policy=policy)))
+    rel = rng.random((g.e_pad, E.KGE_F)).astype(np.float32)
+    entity = rng.random((n, E.KGE_F)).astype(np.float32)
+    sess.bind_channel("kge_score", "relation", rel,
+                      fill=lambda a, b: np.full(E.KGE_F, 0.5, np.float32))
+    x = rng.normal(size=(n, E.GCN_F_IN)).astype(np.float32)
+    w = rng.normal(size=(E.GCN_F_IN, E.GCN_F_OUT)).astype(np.float32)
+    log({"phase": "stream.init", "wall_s": t_init, "slack": list(slack),
+         "e_max": sess.plan.e_max, "v_max": sess.plan.v_max,
+         "rf_base": sess.rf_base, "free_graph_slots": sess.sg.free_slots()})
+
+    batches = []
+    obs.reset()
+    obs.enable()       # the patch spans time patch_plan and the layouts
+    try:
+        for b in range(STREAM_BATCHES + 1):
+            trickle = b == STREAM_BATCHES
+            ins, dels = _stream_updates(
+                sess, rng, STREAM_TRICKLE if trickle
+                else int(STREAM_FRAC * g.n_edges))
+            cfg = sess.cfg
+            if b >= STREAM_BATCHES - 1:
+                # a threshold below any drift: this step's check fires (the
+                # trickle's over the touched vertices alone)
+                sess.cfg = dc.replace(cfg, drift_threshold=-1.0,
+                                      hops=0 if trickle else cfg.hops)
+            hops = sess.cfg.hops
+            recompiles = sess.n_recompiles
+            lc0 = ops.LAUNCHES["lane_cumsum"]
+            obs.reset()
+            if b == 0:
+                stats, t_apply, served = _stream_server(
+                    G, E, sess, rng, ins, dels, entity, path)
+            else:
+                served = None
+                stats, t_apply = wall(lambda: path.run(
+                    lambda: sess.apply(inserts=ins, deletes=dels)))
+            sess.cfg = cfg
+            require(obs.get().stats()["dropped"] == 0,
+                    f"stream step {b}: the recorder dropped events")
+            patches = _spans("stream.patch_plan")
+            plan = sess.plan
+            lay = Kn.segment_layout(plan)
+            row = {"batch": b, "trickle": trickle,
+                   "updates": len(ins) + len(dels), "apply_s": t_apply,
+                   "patched": sess.n_recompiles == recompiles,
+                   "patch_changes": [a["changes"] for _, a in patches],
+                   "patch_plan_ms": [t for t, _ in patches],
+                   "layouts_ms": [t for t, _ in _spans("stream.layouts")],
+                   "layout": lay.stats(), "rf": stats["rf"],
+                   "rf_base": stats["rf_base"],
+                   "recompiles": stats["recompiles"],
+                   "forced_recompiles": stats["forced_recompiles"],
+                   "e_max": plan.e_max, "v_max": plan.v_max}
+            if stats["reauction"] is not None:
+                info = stats["reauction"]
+                row["reauction"] = dict(
+                    info, batch=b, hops=hops, patched=row["patched"],
+                    ms_per_round=1e3 * info["region_s"]
+                    / max(info["rounds"], 1),
+                    lane_cumsum=ops.LAUNCHES["lane_cumsum"] - lc0)
+            if b >= STREAM_BATCHES - 1:
+                require("reauction" in row,
+                        f"stream step {b}: the forced re-auction did not run")
+            if trickle:
+                moved = row["reauction"]["moved_edges"]
+                require(row["patched"] and moved > 0
+                        and sess.last_change["event"] == "patch"
+                        and sess.last_change["moves"] == moved,
+                        f"stream trickle: re-auction {row['reauction']}, "
+                        f"last change {sess.last_change}, want a patch of "
+                        "moves")
+            g_now = sess.graph()
+            want = _stream_oracles(g_now)
+            row["queries"] = _stream_queries(E, sess.engine, g_now, want,
+                                             path, f"stream step {b}")
+            recompiled, t_rc = wall(lambda: E.compile_plan(
+                g_now, sess.owner, K, edge_slack=slack[0],
+                vertex_slack=slack[1], epoch=sess.epoch + 1))
+            row["recompiled"] = {"compile_s": t_rc,
+                                 "e_max": recompiled.e_max,
+                                 "queries": _stream_queries(
+                                     E, E.Engine(recompiled), g_now, want,
+                                     _PathLaunches(), f"recompiled {b}")}
+            for p, key in ((plan, "patched"), (recompiled, "recompiled")):
+                m = torch.rand(p.emask.shape, generator=gen,
+                               device=p.device) * 30
+                row[f"segment_reduce_{key}_ms"] = device_ms(
+                    lambda: Kn.segment_reduce(p, m, "min"))
+                row[f"segment_reduce_{key}_bound_ms"] = _seg_bound(p)[0]
+            row["kernel_checks"] = _stream_kernel_checks(Kn, E, plan, g_now,
+                                                         gen, x, w)
+            row["gcn_layer_s"] = wall(lambda: path.run(
+                lambda: E.engine_gcn_layer(sess.engine, g_now.degrees(), x,
+                                           w)))[1]
+            if served is not None:
+                row["server"] = served
+            log({"phase": "stream.batch", **row})
+            batches.append(row)
+
+        epoch0 = sess.epoch
+        compacted, t_idle = wall(lambda: path.run(sess.idle_tick))
+    finally:
+        obs.disable()
+        obs.reset()
+    require(compacted and sess.epoch == epoch0 + 1,
+            f"stream: idle_tick compacted={compacted}, epoch {sess.epoch}")
+    reauctions = [r["reauction"] for r in batches if "reauction" in r]
+    require(all(r["lane_cumsum"] > 0 for r in reauctions),
+            "stream: a re-auction launched no lane_cumsum")
+    g_now = sess.graph()
+    after = _stream_queries(E, sess.engine, g_now, _stream_oracles(g_now),
+                            path, "stream compaction")
+    compaction = {"wall_s": t_idle, "epoch": sess.epoch,
+                  "e_pad": sess.sg.e_pad, "e_max": sess.plan.e_max,
+                  "v_max": sess.plan.v_max,
+                  "idle_compactions": sess.n_idle_compactions,
+                  "queries": after}
+    log({"phase": "stream.compaction", **compaction})
+    sess.unbind_channel("kge_score", "relation")
+    policy.close()
+    launches = path.total
+    for name in STREAM_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the stream path")
+    require(launches.get("masked_update", 0) == 0,
+            "stream: masked_update launched")
+    summary = {"launches": {k: launches.get(k, 0) for k in
+                            (*STREAM_KERNELS, "masked_update")},
+               "patches": sess.n_patches, "recompiles": sess.n_recompiles,
+               "forced_recompiles": sess.n_forced_recompiles,
+               "reauctions": sess.n_reauctions, "version": sess.version,
+               "phase_s": time.perf_counter() - t_phase}
+    log({"phase": "stream.summary", **summary})
+    return {"batches": batches, "reauction_rows": reauctions,
+            "compaction": compaction, **summary}
 
 
 def _delta(before: dict, after: dict) -> dict:
@@ -1202,7 +1597,7 @@ def _greedy_agrees(tokens, logits, rel: float) -> tuple[bool, int]:
 
 def phase_lm(cfg=None, dev: str = "cuda"):
     """Mamba serving at full width and depth on the card (module docstring,
-    phase 6). Returns (the kernels' launches in ``generate``, the scan's
+    phase 7). Returns (the kernels' launches in ``generate``, the scan's
     inputs at the first and last layer of the prompt's prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2118,7 +2513,7 @@ def _selective_scan_section(captured, gen, times) -> dict:
 
 def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                   etsch_launches, sssp_state, lm_launches, lm_inputs,
-                  serve_launches):
+                  serve_launches, stream):
     from repro_torch.engine import kernels as Kn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2246,6 +2641,12 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
 
     seg_bound, seg_by = _seg_bound(plan)
     mu_bound, mu_by = _mu_bound(plan)
+    stream_launches = stream["launches"]
+    stream_seg = [{k: row[k] for k in (
+        "batch", "trickle", "patched", "segment_reduce_patched_ms",
+        "segment_reduce_patched_bound_ms", "segment_reduce_recompiled_ms",
+        "segment_reduce_recompiled_bound_ms", "e_max")}
+        for row in stream["batches"]]
     return {"kernels": [
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -2263,7 +2664,9 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "add_library_ms": seg_t["add"]["library_ms"],
          "layout": layouts["plan"],
          "serve_launches": serve_launches["segment_reduce"],
-         "lanes": lanes_t["segment_reduce"]},
+         "lanes": lanes_t["segment_reduce"],
+         "stream_launches": stream_launches["segment_reduce"],
+         "stream": stream_seg},
         {"name": "exchange", "route": "cuda",
          "source": "src/repro_torch/csrc/replica_exchange.cu",
          "replaces": "src/repro/engine/kernels.py:394",
@@ -2283,6 +2686,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
             for label, _, _ in EXCHANGE_CASES},
          "layout": dict(Kn.exchange_layout(plan).stats()),
          "serve_launches": serve_launches["exchange"],
+         "stream_launches": stream_launches["exchange"],
          "lanes": lanes_t["exchange"],
          # the glob-form update, kept for a cross-device exchange; no
          # single-device path launches it
@@ -2300,6 +2704,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "replaces": "src/repro/engine/kernels.py:233",
          "launches": gnn_launches["gspmm"],
          "serve_launches": serve_launches["gspmm"],
+         "stream_launches": stream_launches["gspmm"],
          "max_abs_err": gs_err["plan.f8.scalar.add"],
          "ms": gs_t["f8"]["kernel_ms"], "plain_ms": gs_t["f8"]["plain_ms"],
          "bound_ms": gs_t["f8"]["bound_ms"],
@@ -2318,6 +2723,11 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "source": "src/repro_torch/csrc/lane_cumsum.cu",
          "replaces": "src/repro/kernels/lane_cumsum.py:24",
          "launches": launches["lane_cumsum"], "max_abs_err": lc["max_abs_err"],
+         "stream_launches": stream_launches["lane_cumsum"],
+         "reauction": [{k: r[k] for k in (
+             "batch", "hops", "rounds", "ms_per_round", "lane_cumsum",
+             "active_edges", "moved_edges", "patched")}
+             for r in stream["reauction_rows"]],
          "ms": lc["kernel_ms"], "plain_ms": lc["plain_ms"],
          "bound_ms": lc["bound_ms"], "bound_by": lc["bound_by"],
          "library_ms": lc["library_ms"], "flat_scan_ms": lc["flat_scan_ms"],
@@ -2416,12 +2826,14 @@ def main() -> int:
     g, owner, plan, launches, sssp_state = phase_main()
     gnn_launches = phase_gnn(g, plan)
     serve = phase_serve(g, owner)
+    stream = phase_stream(g, owner)
     part, road_part, etsch_launches = phase_etsch(g, owner, plan,
                                                   sssp_state)
     lm_launches, lm_inputs = phase_lm()
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
-                                lm_launches, lm_inputs, serve["launches"])
+                                lm_launches, lm_inputs, serve["launches"],
+                                stream)
     del lm_inputs
     phase_cpu_equal()
     _lm_cpu_equal()

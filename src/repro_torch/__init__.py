@@ -1,7 +1,9 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``.
 
 Graph → DFEP edge partitioning → compacted per-partition CSR plan → engine
-supersteps (SSSP, WCC, PageRank and the GNN programs), and the paper's own
+supersteps (SSSP, WCC, PageRank and the GNN programs), streaming
+maintenance of the partition and the plan (``stream``) with graph-query
+serving over it (``gserve``), and the paper's own
 dense ETSCH framework with its partition metrics and baselines, with
 hand-written CUDA kernels (``csrc/``) for the segmented reduce, the replica
 update, gSpMM, the min-plus sweep, the frontier min and DFEP's rank

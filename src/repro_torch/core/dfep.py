@@ -23,6 +23,10 @@ ties, as ``jnp.argmax`` does; boolean scatter-``max`` becomes an integer
 scatter-add tested ``> 0``; ``_hash01`` emulates uint32 arithmetic in
 int64.
 
+:func:`run_dfep_region` runs the same rounds over a region of the graph
+(the streaming session's bounded local re-auction): ``_round``'s
+``active`` edges are re-sold and its grants stay on ``grant_v`` vertices.
+
 The reference draws the K start vertices with ``jax.random.choice``, which
 torch cannot reproduce: :func:`partition` takes them as ``starts`` and
 otherwise draws them from a seeded ``torch.Generator``.
@@ -160,14 +164,18 @@ def _scatter_any(n: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor
     return acc > 0
 
 
-def _round(g: Graph, slots: Slots, cfg: DfepConfig,
-           state: DfepState) -> DfepState:
-    """One full-graph auction round (the reference's ``_round`` with
-    ``active`` and ``grant_v`` left at None)."""
+def _round(g: Graph, slots: Slots, cfg: DfepConfig, state: DfepState,
+           active: torch.Tensor | None = None,
+           grant_v: torch.Tensor | None = None) -> DfepState:
+    """One auction round. ``active`` ([E] bool, default: every real edge)
+    restricts steps 1–2 to a subset of edges, and ``grant_v`` ([V] bool)
+    restricts step-3 grants to those vertices: the bounded local
+    re-auction of ``repro_torch.stream`` runs this with both set to its
+    h-hop region. With both None this is the paper's full-graph round."""
     k = cfg.k
     dev = g.device
     u, v = g.src, g.dst
-    emask = g.edge_mask
+    emask = g.edge_mask if active is None else (g.edge_mask & active)
     owner, mv = state.owner, state.mv
     part_ids = torch.arange(k, dtype=torch.int32, device=dev)
     i32 = torch.int32
@@ -276,6 +284,8 @@ def _round(g: Graph, slots: Slots, cfg: DfepConfig,
     presence = (mv_new > 0) | owned_at
     has_frontier = fr_u.any(dim=0)                                   # [K]
     presence = torch.where(has_frontier[None, :], fr_u, presence)
+    if grant_v is not None:   # local re-auction: grants stay in the region
+        presence = presence & grant_v[:, None]
     pres_i = presence.to(i32)
     n_pres = pres_i.sum(dim=0, dtype=i32).clamp(min=1)               # [K]
     p_base = grant // n_pres
@@ -297,17 +307,73 @@ def _round(g: Graph, slots: Slots, cfg: DfepConfig,
     )
 
 
-def run_dfep(g: Graph, slots: Slots, cfg: DfepConfig, starts) -> DfepState:
-    """Run rounds until every real edge is owned (or stall/round caps hit).
+def _run_rounds(g: Graph, slots: Slots, cfg: DfepConfig, state: DfepState,
+                active=None, grant_v=None) -> DfepState:
+    """Rounds until every real edge is owned (or stall/round caps hit).
     One device→host read per round decides whether to go on."""
-    state = init_state(g, cfg, starts)
     while True:
         unsold = (state.owner == FREE).sum()
         go = ((unsold > 0) & (state.rounds < cfg.max_rounds)
               & (state.stalled < cfg.stall_rounds))
         if not bool(go):
             return state
-        state = _round(g, slots, cfg, state)
+        state = _round(g, slots, cfg, state, active, grant_v)
+
+
+def run_dfep(g: Graph, slots: Slots, cfg: DfepConfig, starts) -> DfepState:
+    """Run rounds until every real edge is owned (or stall/round caps hit)."""
+    return _run_rounds(g, slots, cfg, init_state(g, cfg, starts))
+
+
+# ---------------------------------------------------------------------------
+# Incremental (region-restricted) DFEP — entry points for repro_torch.stream
+# ---------------------------------------------------------------------------
+
+def init_region_state(g: Graph, cfg: DfepConfig, owner: torch.Tensor,
+                      active: torch.Tensor,
+                      region_v: torch.Tensor) -> DfepState:
+    """Seed a bounded local re-auction.
+
+    Edges under ``active`` are released (owner -> FREE); each partition gets
+    ``ceil(|active| / K)`` units spread over its presence vertices *inside*
+    the region (anchoring the auction to its existing territory). A
+    partition with no region presence seeds at the first region vertex, like
+    Algorithm 3's random start.
+    """
+    k = cfg.k
+    dev = g.device
+    i32 = torch.int32
+    owner0 = torch.where(active, FREE, owner).to(i32)
+    n_active = int(active.sum())
+    funding = -(-n_active // k)                                      # ceil
+    # partition presence at region vertices (from still-owned edges)
+    part_ids = torch.arange(k, dtype=i32, device=dev)
+    owned = (owner0[:, None] == part_ids[None, :]) & g.edge_mask[:, None]
+    pres = (_scatter_any(g.n_vertices, g.src, owned)
+            | _scatter_any(g.n_vertices, g.dst, owned)) & region_v[:, None]
+    pres_i = pres.to(i32)
+    cnt = pres_i.sum(dim=0, dtype=i32)                               # [K]
+    safe = cnt.clamp(min=1)
+    base = funding // safe
+    rem = funding - base * safe
+    rank = ops.lane_cumsum(pres_i) - pres_i
+    mv = pres_i * (base[None, :] + (rank < rem[None, :]).to(i32))
+    # no-presence fallback: everything at the first region vertex
+    fallback = int(torch.argmax(region_v.to(i32)))
+    mv[fallback] += torch.where(cnt == 0, funding, 0).to(i32)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    return DfepState(owner0, mv, zero, zero.clone())
+
+
+def run_dfep_region(g: Graph, slots: Slots, cfg: DfepConfig,
+                    owner: torch.Tensor, active: torch.Tensor,
+                    region_v: torch.Tensor) -> DfepState:
+    """DFEP steps 1–2 (plus region-restricted step-3 grants) over only the
+    ``active`` edges, holding every other assignment fixed: the bounded
+    local re-auction the streaming session runs when replication drift
+    crosses its threshold. The loop is :func:`run_dfep`'s."""
+    state = init_region_state(g, cfg, owner, active, region_v)
+    return _run_rounds(g, slots, cfg, state, active, region_v)
 
 
 def finalize(g: Graph, owner: torch.Tensor, k: int,

@@ -95,6 +95,29 @@ def edge_weights(u, v) -> np.ndarray:
     return (1.0 + h / EDGE_WEIGHT_MOD).astype(np.float32)
 
 
+def apply_edge_updates(g: Graph, slots, new_src, new_dst,
+                       new_mask) -> Graph:
+    """Functional slot-level mutation: write (src, dst, mask) at ``slots``
+    on the graph's device and return a new Graph; ``g`` is untouched.
+
+    ``StreamingGraph.graph()`` (``repro_torch.stream.ingest``) materialises
+    mutated graphs through this: insertions claim masked (spare) slots,
+    deletions clear ``edge_mask``. Shapes never change.
+    """
+    dev = g.device
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+
+    def put(field, vals, dtype):
+        out = field.clone()
+        out[idx] = torch.as_tensor(np.asarray(vals), device=dev).to(dtype)
+        return out
+
+    src = put(g.src, new_src, torch.int32)
+    dst = put(g.dst, new_dst, torch.int32)
+    mask = put(g.edge_mask, new_mask, torch.bool)
+    return Graph(g.n_vertices, int(mask.sum()), src, dst, mask)
+
+
 def from_edge_array(n_vertices: int, edges: np.ndarray,
                     pad_to: int | None = None, device=None) -> Graph:
     """Build a Graph from an [E, 2] int array of undirected edges.

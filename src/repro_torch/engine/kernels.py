@@ -176,10 +176,13 @@ class SegmentLayout:
 
     def stats(self) -> dict:
         """Counts to log: tiles, block units, warp runs, live append
-        slots, the widest window."""
+        slots, the most append slots one target's writer walks, the
+        widest window."""
+        runs = torch.diff(self.app_ptr)
         return {"tiles": self.n_tiles, "block_units": self.n_units,
                 "warp_runs": int(self.warp_targets.numel()),
                 "append_slots": self.n_append,
+                "longest_append_run": int(runs.max()) if runs.numel() else 0,
                 "window_cap": self.window_cap}
 
 

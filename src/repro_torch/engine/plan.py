@@ -103,6 +103,16 @@ class PartitionPlan:
             object.__setattr__(self, key, cached)
         return cached
 
+    def host(self, name: str) -> np.ndarray:
+        """A tensor field as a read-only host array, copied once per plan
+        (``stream.patch_plan`` reads its input's fields here and leaves its
+        own on the plan it returns)."""
+        def make():
+            a = getattr(self, name).cpu().numpy().copy()
+            a.flags.writeable = False
+            return a
+        return self._memo(f"_host_{name}", make)
+
     def index64(self, name: str) -> torch.Tensor:
         """An int32 index field widened once to int64 (gathers and
         scatters take int64 indices)."""
@@ -293,8 +303,16 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
                for f in TENSOR_FIELDS}
     plan = PartitionPlan(**static, **tensors)
     if plan.device.type == "cuda":
-        gspmm_layout(plan)          # and, under it, segment_layout(plan)
-        exchange_layout(plan)
+        build_layouts(plan)
+    return plan
+
+
+def build_layouts(plan: PartitionPlan) -> PartitionPlan:
+    """Build and keep the plan's ``segment_reduce``, ``gspmm`` and
+    ``exchange`` layouts now, so that no query pays for them (host syncs:
+    never inside a CUDA-graph capture). Returns the plan."""
+    gspmm_layout(plan)              # and, under it, segment_layout(plan)
+    exchange_layout(plan)
     return plan
 
 

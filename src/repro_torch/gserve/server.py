@@ -4,9 +4,9 @@ The counterpart of ``repro.gserve.server`` over the port's engine: the
 same micro-batches, cache probes, admission and results, dispatched
 through ``Engine.dispatch_batched`` (lanes on the kernels' feature axis)
 and ``Engine.dispatch`` with the engine's own ``use_kernels``, so on the
-card no request falls back to the plain versions. Two parts of the
-reference wait for their modules: ``from_session`` (streaming) and
-``ledger=`` (the cost model); both raise ``NotImplementedError``.
+card no request falls back to the plain versions. One part of the
+reference waits for its module: ``ledger=`` (the cost model) raises
+``NotImplementedError``.
 
 The server pulls five pieces together:
 
@@ -35,8 +35,8 @@ The server pulls five pieces together:
     supersteps instead of recomputing from scratch;
   * a *double-buffered plan swap*: the server holds one immutable
     ``_PlanBuffer`` (engine + graph snapshot + fingerprint + version).  A
-    streaming session (the reference's ``repro.stream``, not ported yet)
-    calls the epoch-change hook ``_on_plan_change``; on each event the
+    ``repro_torch.stream`` session publishes epoch-change hooks (bind with
+    ``from_session``) and calls ``_on_plan_change``; on each event the
     server builds a fresh buffer and atomically swaps the front pointer.  In-flight micro-batches captured the OLD buffer at dispatch
     time and keep draining against it (plans are immutable — there is no
     torn/half-patched state to observe); batches formed after the
@@ -68,9 +68,6 @@ from .scheduler import (DEFAULT_BUCKETS, MicroBatch, MicroBatcher,
 
 _BATCH_DTYPES = {int: torch.int32, float: torch.float32}
 #: What the port has not ported yet (ROADMAP.md, queue 1).
-_NO_STREAMING = ("GraphServer.from_session needs the streaming session, "
-                 "which the port does not have yet (ROADMAP.md, queue 1: "
-                 "Streaming)")
 _NO_LEDGER = ("GraphServer ledger= needs the cost ledger and its cost "
               "model, which the port does not have yet (ROADMAP.md, "
               "queue 1: Observability)")
@@ -157,16 +154,17 @@ class GraphServer:
 
         server = GraphServer(engine=eng, graph=g)
 
-    A plan change reaches the server through ``_on_plan_change``, the
-    epoch-change hook a streaming session calls (``from_session`` waits
-    for the port's streaming module).
+    or bound to a streaming session (subscribes to its epoch-change hooks,
+    double-buffers plan swaps)::
+
+        server = GraphServer.from_session(sess)
 
     ``max_wait_s`` (optional) arms the timer-based flush: ``drain()`` then
     lets partial buckets wait up to the deadline for more requests to
     coalesce before dispatching.  ``warm_entries=0`` disables warm-started
     repair dispatch.
 
-    ``monitor`` (optional, a ``repro.obs.Monitor``) receives every
+    ``monitor`` (optional, a ``repro_torch.obs.Monitor``) receives every
     completion (tenant, program, end-to-end latency) and every admission
     rejection (``ok=False``), and is rate-limitedly evaluated after each
     completed batch — SLO burn-rate alerts fire as ``obs.alert`` events
@@ -205,6 +203,7 @@ class GraphServer:
         self._warm: "collections.OrderedDict[tuple, tuple[str, np.ndarray]]"\
             = collections.OrderedDict()
         self._warm_ok: set[str] = set()
+        self._unsubscribe = None
         self._cache_dirty = False
         # the engine keeps its use_kernels (where the reference forces its
         # XLA path): on the card every micro-batch runs the kernels
@@ -219,11 +218,19 @@ class GraphServer:
 
     @classmethod
     def from_session(cls, session, **kwargs) -> "GraphServer":
-        """Bind to a streaming session (the reference's
-        ``repro.stream.StreamSession``): not ported yet."""
-        raise NotImplementedError(_NO_STREAMING)
+        """Bind to a ``repro_torch.stream.StreamSession``: the server
+        snapshots the session's current plan and subscribes to its
+        epoch-change hooks so every installed patch/recompile swaps the
+        front buffer."""
+        srv = cls(session.engine, session.graph(), epoch=session.epoch,
+                  version=session.version, **kwargs)
+        srv._unsubscribe = session.subscribe(srv._on_plan_change)
+        return srv
 
     def close(self) -> None:
+        if self._unsubscribe is not None:
+            self._unsubscribe()
+            self._unsubscribe = None
         self._obs_unregister()
 
     # -- cost accounting ------------------------------------------------------

@@ -4,9 +4,11 @@ The part of ``repro.obs`` the serving path needs: a process-global
 ``Recorder`` (fixed-size ring buffer of structured events and spans, a
 no-op when disabled) that the engine, the registry and the server record
 into; the mergeable log-bucketed histograms (``LogHistogram`` /
-``WindowedHistogram``) behind the serving metrics; and ``plan_health``,
-the partition-health gauges of a compiled plan. The exporters, the SLO
-monitor, the flight recorder, the cost model and ledger and the reports
+``WindowedHistogram``) behind the serving metrics; ``plan_health``, the
+partition-health gauges of a compiled plan; and the SLO burn-rate
+``Monitor`` (with ``SLOPolicy`` and ``GaugeWatch``) that the server feeds
+and the streaming session's adaptive compaction policy reads. The
+exporters, the flight recorder, the cost model and ledger and the reports
 of the reference are not ported yet.
 
 Typical use::
@@ -18,11 +20,13 @@ Typical use::
 """
 from .health import plan_health
 from .histogram import LogHistogram, WindowedHistogram
+from .monitor import GaugeWatch, Monitor, SLOPolicy
 from .recorder import Recorder, get
 
 __all__ = [
-    "LogHistogram", "Recorder", "WindowedHistogram", "disable", "enable",
-    "event", "get", "plan_health", "reset", "snapshot",
+    "GaugeWatch", "LogHistogram", "Monitor", "Recorder", "SLOPolicy",
+    "WindowedHistogram", "disable", "enable", "event", "get", "plan_health",
+    "reset", "snapshot",
 ]
 
 

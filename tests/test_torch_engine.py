@@ -207,7 +207,9 @@ def test_package_imports_no_jax_and_no_reference():
                 "repro_torch.configs", "repro_torch.models.ssm",
                 "repro_torch.models.lm", "repro_torch.serve.serve_step",
                 "repro_torch.launch.serve", "repro_torch.engine.registry",
-                "repro_torch.obs.recorder", "repro_torch.gserve.server"):
+                "repro_torch.obs.recorder", "repro_torch.gserve.server",
+                "repro_torch.obs.monitor", "repro_torch.stream.session",
+                "repro_torch.stream.patch"):
         assert mod in seen["mods"]
 
 

@@ -1030,3 +1030,72 @@ def test_run_batched_on_card_equals_solo():
             one = eng.run(prog, source=int(s), warm_state=block[i])
             assert torch.equal(w.state[i], one.state), (prog.name, i)
             assert int(w.supersteps[i]) == one.supersteps
+
+
+@pytest.mark.gpu
+def test_stream_session_on_card_equals_cpu():
+    """A streaming session on the card and on the CPU through the same
+    update batches (one with a drift re-auction): equal owners, plans and
+    counters; on the card every patched plan's queries launch the kernels
+    (segment_reduce, exchange, gspmm; lane_cumsum in the re-auction), and
+    equal the plain versions on the same plan: SSSP/WCC bit for bit with
+    equal counters, PageRank within 1e-4 relative, gcn_layer within 1e-4
+    of its largest value."""
+    from repro_torch import stream as TS
+    from repro_torch.kernels import ops
+    dev = _card()
+    rng = np.random.default_rng(3)
+    sess = {}
+    for d in (dev, "cpu"):
+        g = TG.largest_component(TG.barabasi_albert(400, 3, seed=2,
+                                                    device=d))
+        sess[d] = TS.StreamSession(g, TS.StreamConfig(
+            k=4, chunk_size=64, drift_threshold=1e9, hops=0), seed=0,
+            device=d)
+    n = sess["cpu"].sg.n_vertices
+    x = rng.normal(size=(n, TE.GCN_F_IN)).astype(np.float32)
+    w = rng.normal(size=(TE.GCN_F_IN, TE.GCN_F_OUT)).astype(np.float32)
+    for batch in range(3):
+        gu, gv = sess["cpu"].graph().as_numpy()
+        kill = rng.choice(len(gu), size=40, replace=False)
+        upd = dict(inserts=rng.integers(0, n, size=(60, 2)),
+                   deletes=np.stack([gu[kill], gv[kill]], 1))
+        if batch == 2:      # drift past any baseline: one re-auction
+            for s in sess.values():
+                s.cfg = dataclasses.replace(s.cfg, drift_threshold=-1.0)
+        before = dict(ops.LAUNCHES)
+        stats = {d: s.apply(**upd) for d, s in sess.items()}
+        for st in stats.values():   # the host seconds of the rounds differ
+            if st["reauction"] is not None:
+                assert st["reauction"].pop("region_s") >= 0.0
+        assert stats[dev] == stats["cpu"]
+        np.testing.assert_array_equal(sess[dev].owner, sess["cpu"].owner)
+        for f in TE.plan.TENSOR_FIELDS:
+            assert torch.equal(getattr(sess[dev].plan, f).cpu(),
+                               getattr(sess["cpu"].plan, f)), f
+        if batch == 2:
+            assert stats[dev]["reauction"] is not None
+            assert ops.LAUNCHES["lane_cumsum"] > before["lane_cumsum"]
+        plan = sess[dev].plan
+        kern, plain = sess[dev].engine, TE.Engine(plan, use_kernels=False)
+        assert kern.use_kernels and kern.plan is plan
+        g = sess[dev].graph()
+        before = dict(TK.LAUNCHES)
+        for run in (lambda e: TE.engine_sssp(e, 0), TE.engine_wcc):
+            a, b = run(kern), run(plain)
+            assert torch.equal(a.state, b.state) and a.row() == b.row()
+        a = TE.engine_pagerank(kern, g.degrees(), iters=20)
+        b = TE.engine_pagerank(plain, g.degrees(), iters=20)
+        torch.testing.assert_close(a.state, b.state, rtol=1e-4, atol=0)
+        a = TE.engine_gcn_layer(kern, g.degrees(), x, w).state
+        b = TE.engine_gcn_layer(plain, g.degrees(), x, w).state
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+        torch.cuda.synchronize()
+        for name in ("segment_reduce", "exchange", "gspmm"):
+            assert TK.LAUNCHES[name] > before[name], name
+        assert TK.LAUNCHES["masked_update"] == before["masked_update"]
+        lay = TK.segment_layout(plan)
+        assert lay.stats()["append_slots"] > 0
+        # the layouts were built with the patch, before any query
+        assert "_exchange_layout" in plan.__dict__

@@ -114,7 +114,32 @@ non-zero with no "ok" line):
               ``etsch_sssp`` and minplus_sweep in ``evaluate``; each
               problem's line logs its minplus_sweep launches by state
               rows ([K·V], [K·8·V], [V]).
-7. lm       — Mamba serving at falcon-mamba-7b's full width and depth
+7. dist     — the multi-device path over ``torch.distributed`` on the main
+              phase's graph, DFEP owner and plan, at each world size of
+              DIST_WORLDS (world 1 over NCCL, world 2 over gloo with CUDA
+              tensors: NCCL refuses two ranks on one card), every rank a
+              process spawned here on card 0 after the kernels are built:
+              ``run_dfep_sharded`` at DIST_DFEP_ROUNDS fixed rounds from
+              the main phase's starts (every live edge owned in [0, K),
+              sizes summing to |E|, two ``lane_cumsum`` launches a round a
+              rank, ``largest_norm`` and ms a round logged),
+              ``sssp_sharded(0)`` (equal to scipy, the same supersteps at
+              both worlds) and ``pagerank_sharded(30)`` (PR_ORACLE_RTOL of
+              the float64 oracle) on the main phase's partitioning, and
+              ``Engine(plan, group=...)``: SSSP(0) and WCC bit for bit and
+              PageRank(30) within PR_PLAIN_RTOL of the main phase's
+              single-device results, with the same supersteps and
+              convergence (local sweeps equal at world 1, no more at world
+              2, where they are the busiest rank's), ``segment_reduce``
+              launched once a sweep on the busiest rank, ``masked_update``
+              once a superstep a rank and ``exchange`` never; and
+              ``multi_source_sssp`` of the serve phase's SERVE_LANES
+              sources, each lane bit for bit its solo run with the same
+              counters. The counters are zeroed just before each first
+              call and read just after; each is then run warm with CUDA
+              events around every collective (``collective_ms``). Every
+              rank must return the same; a failing rank fails the phase.
+8. lm       — Mamba serving at falcon-mamba-7b's full width and depth
               (64 layers, d_model 4096, d_inner 8192, d_state 16, vocab
               65,024): ``lm.init_params`` on the card from a seeded
               generator (float32, 27.1 GiB), then B = LM_BATCH seeded
@@ -130,15 +155,18 @@ non-zero with no "ok" line):
               must fall outside it. The scan's inputs at the first and the
               last layer of the prompt's prefill are kept for the kernels
               phase, and the model is freed before it.
-8. kernels  — each kernel against its plain version on the main path's plan
+9. kernels  — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
               bit, and its per-plan layout's build time and counts logged;
               gspmm at F = 1, 8 and 128, add/max/mean, scalar and per-feature
               weights, add also against a second call, bit for bit;
-              masked_update, the glob-form update no single-device path
-              launches now, scalar and at the GNN state's F=8; exchange,
+              masked_update, the glob-form update that closes the dist
+              path's exchanges, scalar and at the GNN state's F=8 on the
+              main plan, and at a world-DIST_BLOCK_WORLD rank's block
+              ([K/2, Vmax] and [K/2, Vmax, SERVE_LANES]; timed beside its
+              bound, its row's launches the dist phase's); exchange,
               the whole replica exchange, at F = 1 and 8, min/add/max, on
               the main path's plan, the patched one, a hub in all K
               partitions and the main graph compiled for K + 1 partitions
@@ -181,13 +209,16 @@ non-zero with no "ok" line):
               S = 1, and on the lm phase's captured layer inputs, and timed
               at the prefill shape and at S = 1, each beside its bound
               (bytes, float32 operations, and exps at the SFUs' rate).
-9. cpu      — dblp at scale 0.03, K=16, the same starts: the port on the card
+10. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
               metrics; and the falcon-mamba SMOKE model with the same
               parameters on both: logits within bf16_rel(4), and
-              the card's greedy tokens the CPU's (up to bfloat16 ties).
+              the card's greedy tokens the CPU's (up to bfloat16 ties);
+              then two gloo ranks run sharded DFEP and the sharded
+              engine's SSSP on card 0 and on the CPU, which must give the
+              same owner, rounds, state and counters.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -195,6 +226,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -312,6 +344,19 @@ STREAM_BATCHES, STREAM_FRAC, STREAM_REQUESTS = 4, 0.04, 56
 STREAM_TRICKLE = 1024
 STREAM_PR_ATOL = 1e-5
 STREAM_KERNELS = ("segment_reduce", "exchange", "gspmm", "lane_cumsum")
+#: The dist phase: (world size, backend), every rank a process on card 0.
+#: NCCL refuses two ranks on one device, so world 2 runs over gloo with
+#: CUDA tensors. DFEP at fig8_scalability's fixed rounds
+#: (benchmarks/fig8_scalability.py:27); a collective that waits longer
+#: than DIST_TIMEOUT_S raises in its rank.
+DIST_WORLDS = ((1, "nccl"), (2, "gloo"))
+DIST_DFEP_ROUNDS = 60
+DIST_TIMEOUT_S = 300
+DIST_KERNELS = ("segment_reduce", "masked_update", "lane_cumsum",
+                "frontier_min", "minplus_sweep")
+#: masked_update is timed at a rank's block of the main plan at this world
+#: size, at F = 1 and at the serve phase's SERVE_LANES lanes.
+DIST_BLOCK_WORLD = 2
 
 
 def bf16_rel(n_layers: int) -> float:
@@ -654,7 +699,7 @@ def phase_main():
     require(rel_oracle <= PR_ORACLE_RTOL, f"PageRank vs float64 oracle: "
             f"max rel {rel_oracle} > {PR_ORACLE_RTOL}")
     launches.update(dfep_launches)
-    return g, owner, plan, launches, results["sssp"].state
+    return g, owner, plan, launches, results
 
 
 def phase_gnn(g, plan):
@@ -1561,6 +1606,275 @@ def phase_etsch(g, owner, plan, engine_sssp_state):
                                          "connected_frac", "gain")}
                   for p, r in fig7.items()}})
     return part, road_part, launches
+
+
+# ---------------------------------------------------------------------------
+# The multi-device path (torch.distributed): ranks spawned from here
+# ---------------------------------------------------------------------------
+
+class _CollectiveTimer:
+    """While installed, every ``collectives.all_reduce_`` is bracketed by
+    CUDA events on the current stream (no host sync is added): ``ms()`` is
+    the device time spent in the collectives since ``install``."""
+
+    def __init__(self):
+        from repro_torch.core import collectives
+        self.module = collectives
+        self.plain = collectives.all_reduce_
+        self.pairs: list = []
+        self.calls = self.bytes = 0
+
+    def install(self):
+        self.pairs, self.calls, self.bytes = [], 0, 0
+
+        def timed(t, op, group=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.plain(t, op, group)
+            end.record()
+            self.pairs.append((start, end))
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            return out
+
+        self.module.all_reduce_ = timed
+
+    def uninstall(self) -> dict:
+        self.module.all_reduce_ = self.plain
+        torch.cuda.synchronize()
+        return {"collective_ms": sum(s.elapsed_time(e) for s, e in self.pairs),
+                "collectives": self.calls, "collective_bytes": self.bytes}
+
+
+def _dist_item(timer, fn) -> tuple:
+    """(first call's result, its launches, row): ``fn`` run first with the
+    launch counters zeroed just before it and read just after, then warm
+    with the collectives timed."""
+    from repro_torch.engine import kernels
+    from repro_torch.kernels import ops
+    kernels.reset_launches()
+    ops.reset_launches()
+    out, first = wall(fn)
+    launches = _launch_counts()
+    timer.install()
+    try:
+        _, warm = wall(fn)
+    finally:
+        row = timer.uninstall()
+    row.update(first_s=first, warm_s=warm)
+    return out, launches, row
+
+
+def _dist_work(rank: int, world: int, inp) -> tuple[dict, dict]:
+    """What one rank of the dist phase runs and checks: sharded DFEP, the
+    sharded ETSCH problems and the sharded engine. Returns (rows to log,
+    arrays for the parent's checks)."""
+    import types
+    import torch.distributed as dist
+    from repro_torch import engine as E
+    from repro_torch.core import dfep, dfep_distributed, etsch
+    from repro_torch.core import etsch_distributed, graph
+
+    group = dist.group.WORLD
+    g = graph.graph_from_numpy(types.SimpleNamespace(
+        n_vertices=int(inp["n_vertices"]), n_edges=int(inp["n_edges"]),
+        src=inp["src"], dst=inp["dst"], edge_mask=inp["edge_mask"]))
+    owner = inp["owner"]
+    timer = _CollectiveTimer()
+    rows, arrays = {}, {}
+
+    cfg = dfep.DfepConfig(k=K, max_rounds=DIST_DFEP_ROUNDS,
+                          stall_rounds=DIST_DFEP_ROUNDS)
+    (own, info), launches, row = _dist_item(
+        timer, lambda: dfep_distributed.run_dfep_sharded(g, cfg,
+                                                         inp["starts"]))
+    own = own.cpu().numpy()
+    em = inp["edge_mask"]
+    sizes = np.bincount(own[em], minlength=K)
+    require(((own[em] >= 0) & (own[em] < K)).all() and (own[~em] == -2).all()
+            and sizes.sum() == g.n_edges,
+            f"dist DFEP (world {world}) owner is not a valid K-partition")
+    require(launches["lane_cumsum"] == 2 * info["rounds"],
+            f"dist DFEP: {launches['lane_cumsum']} lane_cumsum launches for "
+            f"{info['rounds']} rounds (two a round)")
+    rows["dfep"] = dict(row, **info, launches=launches,
+                        largest_norm=float(sizes.max() * K / g.n_edges),
+                        ms_per_round=1e3 * row["first_s"]
+                        / max(info["rounds"], 1),
+                        warm_ms_per_round=1e3 * row["warm_s"]
+                        / max(info["rounds"], 1))
+    arrays["dfep_owner"] = own
+
+    part = etsch.compile_partitioning(g, owner, K)
+    (d, steps), launches, row = _dist_item(
+        timer, lambda: etsch_distributed.sssp_sharded(part, 0))
+    rows["etsch_sssp"] = dict(row, supersteps=steps, launches=launches)
+    arrays["etsch_sssp"] = d.cpu().numpy()
+    pr, launches, row = _dist_item(
+        timer, lambda: etsch_distributed.pagerank_sharded(
+            part, g.degrees(), iters=30))
+    rows["etsch_pagerank"] = dict(row, launches=launches)
+    arrays["etsch_pagerank"] = pr.cpu().numpy()
+    del part
+
+    plan = E.compile_plan(g, owner, K)
+    eng = E.Engine(plan, group=group)
+    for name, run in (("sssp", lambda: E.engine_sssp(eng, 0)),
+                      ("wcc", lambda: E.engine_wcc(eng)),
+                      ("pagerank", lambda: E.engine_pagerank(
+                          eng, g.degrees(), iters=30))):
+        r, launches, row = _dist_item(timer, run)
+        require(launches["exchange"] == 0
+                and launches["masked_update"] == r.supersteps,
+                f"dist {name}: {launches['exchange']} exchange and "
+                f"{launches['masked_update']} masked_update launches for "
+                f"{r.supersteps} supersteps")
+        rows[name] = dict(row, **r.row(), launches=launches)
+        arrays[name] = r.state.cpu().numpy()
+
+    sources = inp["sources"]
+    r, launches, row = _dist_item(timer,
+                                  lambda: E.multi_source_sssp(eng, sources))
+    steps = int(r.supersteps.max())
+    require(launches["exchange"] == 0
+            and launches["masked_update"] == steps
+            and launches["segment_reduce"] > 0,
+            f"dist multi_source_sssp: launches {launches} for {steps} "
+            "supersteps of the longest lane")
+    (solo, solo_s) = wall(lambda: [E.engine_sssp(eng, int(s))
+                                   for s in sources])
+    for i, s in enumerate(solo):
+        require(torch.equal(r.state[i], s.state)
+                and (int(r.supersteps[i]), int(r.local_iters[i]),
+                     bool(r.converged[i]))
+                == (s.supersteps, s.local_iters, s.converged),
+                f"dist multi_source_sssp lane {i} differs from its solo run")
+    rows["multi_source_sssp"] = dict(row, **r.row(), lanes=len(sources),
+                                     launches=launches, solo_s=solo_s)
+    return rows, arrays
+
+
+def _join_group(backend: str, rdzv: str, world: int, rank: int) -> None:
+    """Join this spawned rank to its process group (file rendezvous
+    ``rdzv``), on card 0; a collective that waits longer than
+    DIST_TIMEOUT_S raises."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method="file://" + rdzv,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def _dist_rank(rank: int, world: int, backend: str, rdzv: str, inputs: str,
+               out_dir: str) -> None:
+    """One rank of the dist phase (a process of its own, spawned by
+    ``phase_dist``): joins the group, runs ``_dist_work`` and writes its
+    rows and arrays to ``out_dir``."""
+    import torch.distributed as dist
+    _join_group(backend, rdzv, world, rank)
+    try:
+        rows, arrays = _dist_work(rank, world, np.load(inputs))
+        np.savez(f"{out_dir}/rank_{world}_{rank}.npz", **arrays)
+        Path(f"{out_dir}/rank_{world}_{rank}.json").write_text(
+            json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_outputs(out_dir: str, world: int) -> tuple[list, dict]:
+    """The ranks' rows, and their arrays after checking that every rank
+    returned the same."""
+    rows = [json.loads(Path(f"{out_dir}/rank_{world}_{r}.json").read_text())
+            for r in range(world)]
+    arrays = [dict(np.load(f"{out_dir}/rank_{world}_{r}.npz"))
+              for r in range(world)]
+    for r, other in enumerate(arrays[1:], 1):
+        for key, value in other.items():
+            require(np.array_equal(value, arrays[0][key]),
+                    f"dist world {world}: rank {r} returned another {key}")
+    return rows, arrays[0]
+
+
+def phase_dist(g, owner, main_results):
+    """The multi-device path on the main phase's graph, DFEP owner and plan,
+    at each world size of DIST_WORLDS, every rank a process on card 0."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core import dfep
+
+    n = g.n_vertices
+    csr = csr_of(g)
+    sssp_want = sssp_oracle(csr, 0)
+    pr_want = pagerank_oracle(g)
+    launches, etsch_steps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = f"{tmp}/inputs.npz"
+        np.savez(inputs, n_vertices=n, n_edges=g.n_edges,
+                 src=g.src.cpu().numpy(), dst=g.dst.cpu().numpy(),
+                 edge_mask=g.edge_mask.cpu().numpy(),
+                 owner=owner.cpu().numpy(),
+                 starts=np.asarray(dfep.draw_starts(n, K, SEED)),
+                 sources=np.random.default_rng(SEED).choice(
+                     n, SERVE_LANES, replace=False))
+        for world, backend in DIST_WORLDS:
+            _, t = wall(lambda: mp.spawn(
+                _dist_rank, args=(world, backend, f"{tmp}/rdzv_{world}",
+                                  inputs, tmp), nprocs=world))
+            rows, arrays = _dist_outputs(tmp, world)
+            for r, rank_rows in enumerate(rows):
+                for name, row in rank_rows.items():
+                    log({"phase": f"dist.{name}", "world": world,
+                         "backend": backend, "rank": r, **row})
+            # the engine: min programs bit for bit, PageRank as the main
+            # phase holds it; the same supersteps and convergence, and the
+            # critical path's sweeps no more than one device's
+            rel_engine = None
+            for name in ("sssp", "wcc", "pagerank"):
+                want = main_results[name]
+                got = rows[0][name]
+                state = torch.from_numpy(arrays[name]).to(want.state.device)
+                if name == "pagerank":
+                    rel_engine = max_rel(state, want.state)
+                    require(rel_engine <= PR_PLAIN_RTOL, f"dist pagerank: "
+                            f"max rel {rel_engine} to the main phase's")
+                else:
+                    require(torch.equal(state, want.state),
+                            f"dist {name} differs from the main phase's")
+                require(got["supersteps"] == want.supersteps
+                        and got["converged"] == want.converged
+                        and (got["local_iters"] == want.local_iters
+                             if world == 1
+                             else got["local_iters"] <= want.local_iters),
+                        f"dist {name} counters {got} against {want.row()}")
+                sweeps = max(rr[name]["launches"]["segment_reduce"]
+                             for rr in rows)
+                require(sweeps == got["local_iters"], f"dist {name}: "
+                        f"{sweeps} segment_reduce launches on the busiest "
+                        f"rank for {got['local_iters']} sweeps")
+            require(np.array_equal(arrays["etsch_sssp"], sssp_want),
+                    "dist sssp_sharded differs from the scipy oracle")
+            rel = max_rel(torch.from_numpy(arrays["etsch_pagerank"]),
+                          pr_want)
+            require(rel <= PR_ORACLE_RTOL, f"dist pagerank_sharded: max rel "
+                    f"{rel} to the float64 oracle")
+            etsch_steps[world] = rows[0]["etsch_sssp"]["supersteps"]
+            launches[world] = {k: sum(rr[item]["launches"][k] for rr in rows
+                                      for item in rr)
+                               for k in rows[0]["sssp"]["launches"]}
+            log({"phase": "dist.world", "world": world, "backend": backend,
+                 "wall_s": t, "pagerank_sharded_max_rel_vs_f64_oracle": rel,
+                 "engine_pagerank_max_rel_vs_main": rel_engine,
+                 "launches": launches[world]})
+    require(len(set(etsch_steps.values())) == 1,
+            f"sssp_sharded supersteps differ across worlds: {etsch_steps}")
+    for name in DIST_KERNELS:
+        require(all(launches[w][name] > 0 for w in launches),
+                f"kernel {name} was not launched on the dist path")
+    require(all(launches[w]["exchange"] == 0 for w in launches),
+            "the single-device exchange ran on the dist path")
+    return launches
 
 
 def _leaves(tree):
@@ -2511,10 +2825,42 @@ def _selective_scan_section(captured, gen, times) -> dict:
     return out
 
 
+def _masked_update_block(Kn, block, gen, times) -> dict:
+    """masked_update at a rank's block of the main plan, the dist path's
+    shapes: [K/w, Vmax] against a [V] frontier and [K/w, Vmax,
+    SERVE_LANES] against [V, SERVE_LANES] (min, some states +inf), exact
+    against the plain version, timed beside its bound."""
+    dev = block.device
+    out = {}
+    for label, tail in (("f1", ()), ("lanes", (SERVE_LANES,))):
+        shape = (block.k, block.v_max) + tail
+        state = torch.rand(shape, generator=gen, device=dev) * 30
+        state = torch.where(torch.rand(shape, generator=gen, device=dev)
+                            < 0.2, float("inf"), state)
+        glob = torch.rand((block.n_vertices,) + tail, generator=gen,
+                          device=dev) * 30
+        args = (state, glob, block.local2global, block.vmask,
+                block.replicated, "min")
+        got, want = Kn.masked_update(*args), Kn.masked_update_ref(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"masked_update at the block's {list(shape)} not exact")
+        t = times(kernel=lambda: Kn.masked_update(*args),
+                  plain=lambda: Kn.masked_update_ref(*args))
+        t["bound_ms"], t["bound_by"] = _mu_bound(block, tail[0] if tail
+                                                 else 1)
+        out[label] = dict(t, shape=list(shape), max_abs_err=_max_abs(got,
+                                                                     want))
+    log({"phase": "kernels.masked_update.block", "world": DIST_BLOCK_WORLD,
+         **out})
+    return out
+
+
 def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                   etsch_launches, sssp_state, lm_launches, lm_inputs,
-                  serve_launches, stream):
+                  serve_launches, stream, dist_launches):
     from repro_torch.engine import kernels as Kn
+    from repro_torch.engine.plan import shard_plan
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = plan.device
@@ -2630,6 +2976,8 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     mu8_t["bound_ms"], mu8_t["bound_by"] = _mu_bound(plan, 8)
     log({"phase": "kernels.timing", "segment_reduce": seg_t,
          "masked_update": mu_t, "masked_update_f8": mu8_t})
+    mu_block = _masked_update_block(
+        Kn, shard_plan(plan, 0, DIST_BLOCK_WORLD), gen, times)
     ex_t = _exchange_timing(Kn, plan, gen, times)
     lanes_t = _lane_timing(Kn, plan, gen, times)
     gs_err = _gspmm_checks(Kn, plan, patched, gen)
@@ -2642,6 +2990,12 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     seg_bound, seg_by = _seg_bound(plan)
     mu_bound, mu_by = _mu_bound(plan)
     stream_launches = stream["launches"]
+
+    def dist(name):
+        """A kernel's launches on the dist path, summed over the ranks of
+        each world."""
+        return {str(w): n[name] for w, n in dist_launches.items()}
+
     stream_seg = [{k: row[k] for k in (
         "batch", "trickle", "patched", "segment_reduce_patched_ms",
         "segment_reduce_patched_bound_ms", "segment_reduce_recompiled_ms",
@@ -2664,6 +3018,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "add_library_ms": seg_t["add"]["library_ms"],
          "layout": layouts["plan"],
          "serve_launches": serve_launches["segment_reduce"],
+         "dist_launches": dist("segment_reduce"),
          "lanes": lanes_t["segment_reduce"],
          "stream_launches": stream_launches["segment_reduce"],
          "stream": stream_seg},
@@ -2687,18 +3042,30 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "layout": dict(Kn.exchange_layout(plan).stats()),
          "serve_launches": serve_launches["exchange"],
          "stream_launches": stream_launches["exchange"],
-         "lanes": lanes_t["exchange"],
-         # the glob-form update, kept for a cross-device exchange; no
-         # single-device path launches it
-         "masked_update": {
-             "source": "src/repro_torch/csrc/masked_update.cu",
-             "launches": launches["masked_update"],
-             "launches_gnn": gnn_launches["masked_update"],
-             "max_abs_err": mu_err, "ms": mu_t["kernel_ms"],
-             "plain_ms": mu_t["plain_ms"], "bound_ms": mu_bound,
-             "bound_by": mu_by, "library_ms": None,
-             "f8": {k: mu8_t[k] for k in (
-                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}},
+         "lanes": lanes_t["exchange"]},
+        # the glob-form update that closes every sharded exchange, at a
+        # rank's block (no single-device path launches it)
+        {"name": "masked_update", "route": "cuda",
+         "source": "src/repro_torch/csrc/masked_update.cu",
+         "replaces": "src/repro/engine/kernels.py:394",
+         "launches": sum(dist("masked_update").values()),
+         "dist_launches": dist("masked_update"),
+         "launches_main": launches["masked_update"],
+         "launches_gnn": gnn_launches["masked_update"],
+         "max_abs_err": max(mu_err, *(r["max_abs_err"]
+                                      for r in mu_block.values())),
+         "ms": mu_block["f1"]["kernel_ms"],
+         "plain_ms": mu_block["f1"]["plain_ms"],
+         "bound_ms": mu_block["f1"]["bound_ms"],
+         "bound_by": mu_block["f1"]["bound_by"], "library_ms": None,
+         "combine": "min", "shape": mu_block["f1"]["shape"],
+         "lanes": {k: mu_block["lanes"][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+         "plan": {"shape": [plan.k, plan.v_max], "ms": mu_t["kernel_ms"],
+                  "plain_ms": mu_t["plain_ms"], "bound_ms": mu_bound,
+                  "bound_by": mu_by,
+                  "f8": {k: mu8_t[k] for k in (
+                      "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}},
         {"name": "gspmm", "route": "cuda",
          "source": "src/repro_torch/csrc/gspmm.cu",
          "replaces": "src/repro/engine/kernels.py:233",
@@ -2724,6 +3091,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "replaces": "src/repro/kernels/lane_cumsum.py:24",
          "launches": launches["lane_cumsum"], "max_abs_err": lc["max_abs_err"],
          "stream_launches": stream_launches["lane_cumsum"],
+         "dist_launches": dist("lane_cumsum"),
          "reauction": [{k: r[k] for k in (
              "batch", "hops", "rounds", "ms_per_round", "lane_cumsum",
              "active_edges", "moved_edges", "patched")}
@@ -2737,6 +3105,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "source": "src/repro_torch/csrc/frontier_min.cu",
          "replaces": "src/repro/kernels/frontier_min.py:20",
          "launches": etsch_launches["frontier_min"],
+         "dist_launches": dist("frontier_min"),
          "max_abs_err": fm["max_abs_err"],
          "ms": fm["kernel_ms"], "plain_ms": fm["plain_ms"],
          "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
@@ -2749,6 +3118,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "replaces": "src/repro/kernels/minplus_sweep.py:28",
          "launches": etsch_launches["minplus_sweep"],
          "launches_by_rows": etsch_launches["minplus_by_rows"],
+         "dist_launches": dist("minplus_sweep"),
          "max_abs_err": mp["max_abs_err"],
          "ms": mp["etsch"]["kernel_ms"], "plain_ms": mp["etsch"]["plain_ms"],
          "bound_ms": mp["etsch"]["bound_ms"],
@@ -2821,21 +3191,78 @@ def phase_cpu_equal():
          "wall_s_cpu": out["cpu"][4]})
 
 
+def _dist_cpu_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """One rank of the cpu phase's sharded check (a process of its own):
+    sharded DFEP and the sharded engine's SSSP, over one gloo group, on
+    the card and on the CPU; raises unless both give the same owner,
+    rounds, state and counters."""
+    import torch.distributed as dist
+    from repro_torch import engine as E
+    from repro_torch.core import dfep, dfep_distributed, graph
+    # the ranks share the host's cores for their CPU run
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    _join_group("gloo", rdzv, world, rank)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            g = graph.load_dataset("dblp", scale=CPU_CHECK_SCALE, seed=SEED,
+                                   device=dev)
+            cfg = dfep.DfepConfig(k=K, max_rounds=4000, stall_rounds=64)
+            t0 = time.perf_counter()
+            owner, info = dfep_distributed.run_dfep_sharded(
+                g, cfg, dfep.draw_starts(g.n_vertices, K, SEED), device=dev)
+            plan = E.compile_plan(g, owner, K, device=dev)
+            r = E.engine_sssp(E.Engine(plan, group=dist.group.WORLD), 0)
+            out[dev] = (owner.cpu(), info, r.state.cpu(), r.row(),
+                        time.perf_counter() - t0)
+        (oa, ia, sa, ra, ta), (ob, ib, sb, rb, tb) = out["cuda"], out["cpu"]
+        require(torch.equal(oa, ob),
+                "sharded DFEP owner differs between card and CPU")
+        require(ia == ib, f"sharded DFEP info differs: {ia} vs {ib}")
+        require(torch.equal(sa, sb) and ra == rb,
+                f"sharded SSSP differs between card and CPU: {ra} vs {rb}")
+        Path(f"{out_dir}/cpu_{rank}.json").write_text(json.dumps(
+            {"dfep": ia, "sssp": ra, "wall_s_cuda": ta, "wall_s_cpu": tb}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_cpu_equal() -> None:
+    """The cpu phase's world-2 check: two gloo ranks on card 0 and on the
+    CPU give the same sharded DFEP and engine SSSP."""
+    import tempfile
+    import torch.multiprocessing as mp
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        _, t = wall(lambda: mp.spawn(_dist_cpu_rank,
+                                     args=(world, f"{tmp}/rdzv", tmp),
+                                     nprocs=world))
+        rows = [json.loads(Path(f"{tmp}/cpu_{r}.json").read_text())
+                for r in range(world)]
+    for r, row in enumerate(rows):
+        log({"phase": "cpu_equal.dist", "scale": CPU_CHECK_SCALE,
+             "world": world, "backend": "gloo", "rank": r, **row})
+    log({"phase": "cpu_equal.dist", "world": world, "wall_s": t})
+
+
 def main() -> int:
     card = phase_device()
-    g, owner, plan, launches, sssp_state = phase_main()
+    g, owner, plan, launches, main_results = phase_main()
+    sssp_state = main_results["sssp"].state
     gnn_launches = phase_gnn(g, plan)
     serve = phase_serve(g, owner)
     stream = phase_stream(g, owner)
     part, road_part, etsch_launches = phase_etsch(g, owner, plan,
                                                   sssp_state)
+    dist_launches = phase_dist(g, owner, main_results)
     lm_launches, lm_inputs = phase_lm()
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
                                 lm_launches, lm_inputs, serve["launches"],
-                                stream)
+                                stream, dist_launches)
     del lm_inputs
     phase_cpu_equal()
+    _dist_cpu_equal()
     _lm_cpu_equal()
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -12,5 +12,7 @@ falcon-mamba-7b prefill and greedy decode) through a hand-written
 selective-scan kernel. It imports ``torch`` and numpy and nothing of the
 JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
+The multi-device path (sharded DFEP and ETSCH, ``Engine(plan, group=...)``)
+runs one rank of a ``torch.distributed`` process group per device.
 """
 from . import core, engine, kernels  # noqa: F401

@@ -48,9 +48,9 @@ PyTorch versions.
     ``glob [V(, F)]`` combined elsewhere, private slots keep their own,
     padding is pinned to the identity. CUDA C++ in
     ``csrc/masked_update.cu``, fused with the ``glob[local2global]`` gather
-    that feeds it. No single-device path launches it: it is kept for a
-    cross-device exchange, whose ``glob`` is all-reduced across devices
-    before the update.
+    that feeds it. It closes every exchange of the multi-device path
+    (:func:`exchange_sharded`), whose ``glob`` is all-reduced across the
+    ranks before the update; no single-device path launches it.
 
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) for CPU tensors; there is no fallback from one to the
@@ -70,6 +70,7 @@ import math
 import torch
 
 from .. import cuda_build
+from ..core import collectives as C
 from ..cuda_build import check as _check
 from ..cuda_build import on_card as _on_card
 from ..cuda_build import stream as _stream
@@ -77,6 +78,7 @@ from ..cuda_build import stream as _stream
 _IDENTITY = {"min": math.inf, "add": 0.0, "max": -math.inf}
 _OP_CODE = {"min": 0, "add": 1, "max": 2}
 _SCATTER = {"min": "amin", "add": "sum", "max": "amax"}
+_REDUCE = {"min": "min", "add": "sum", "max": "max"}
 
 #: segment_reduce's layout (:class:`SegmentLayout`). A tile owns up to
 #: SEG_TILE_TARGETS consecutive targets of one partition and stages the
@@ -674,6 +676,13 @@ def exchange_ref(plan, values: torch.Tensor, combine: str = "min", *,
     an order that changes from call to call), then ``update`` gathers it
     back: :func:`masked_update_ref`, or :func:`masked_update`, with which
     the engine ran this chain on the card before :func:`exchange`."""
+    return update(values, _frontier(plan, values, combine),
+                  plan.local2global, plan.vmask, plan.replicated, combine)
+
+
+def _frontier(plan, values: torch.Tensor, combine: str) -> torch.Tensor:
+    """The global frontier ``glob [V(, F)]``: the live replicated slots of
+    ``values`` scatter-combined into their vertices from the identity."""
     ident = _IDENTITY[combine]
     mask = plan.vmask & plan.replicated
     send = torch.where(mask[:, :, None] if values.ndim == 3 else mask,
@@ -687,6 +696,23 @@ def exchange_ref(plan, values: torch.Tensor, combine: str = "min", *,
         idx = idx.reshape(-1, 1).expand(-1, *tail)
     # add identity is 0.0, so the masked send scatters exactly
     glob.scatter_reduce_(0, idx, flat_send, _SCATTER[combine])
+    return glob
+
+
+def exchange_sharded(plan, values: torch.Tensor, combine: str = "min",
+                     group=None, *, update=masked_update) -> torch.Tensor:
+    """The replica exchange of a superstep across the ranks of ``group``,
+    on a rank's block of the plan (``plan.shard_plan``): the block's live
+    replicated slots are scatter-combined into a global frontier ``glob
+    [V(, F)]`` (plain torch, as the reference computes it outside any
+    kernel), ``glob`` is all-reduced across the ranks with the combine's
+    reduce, and ``update`` gathers it back: :func:`masked_update`, the
+    glob-form kernel, which runs :func:`masked_update_ref` on CPU tensors;
+    ``update=masked_update_ref`` is the plain version throughout.
+
+    values [K_loc, Vmax(, F)] float32 -> same shape."""
+    glob = _frontier(plan, values, combine)
+    C.all_reduce_(glob, _REDUCE[combine], group)
     return update(values, glob, plan.local2global, plan.vmask,
                   plan.replicated, combine)
 

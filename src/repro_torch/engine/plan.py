@@ -307,6 +307,25 @@ def plan_from_numpy(ref, device=None) -> PartitionPlan:
     return plan
 
 
+def shard_plan(plan: PartitionPlan, rank: int, world: int) -> PartitionPlan:
+    """Rank ``rank``'s block of ``plan`` over ``world`` ranks: the 16
+    tensor fields cut to the rank's ``k // world`` consecutive partitions,
+    ``k`` set to that count, the other static fields unchanged (the
+    reference's ``shard_map`` block of the plan). On the card the block
+    builds its own kernel layouts from its own rows."""
+    if plan.k % world != 0:
+        raise ValueError(
+            f"k={plan.k} must be divisible by mesh axis size {world}")
+    k_loc = plan.k // world
+    rows = slice(rank * k_loc, (rank + 1) * k_loc)
+    block = dataclasses.replace(
+        plan, k=k_loc,
+        **{f: getattr(plan, f)[rows].contiguous() for f in TENSOR_FIELDS})
+    if block.device.type == "cuda":
+        build_layouts(block)
+    return block
+
+
 def build_layouts(plan: PartitionPlan) -> PartitionPlan:
     """Build and keep the plan's ``segment_reduce``, ``gspmm`` and
     ``exchange`` layouts now, so that no query pays for them (host syncs:

@@ -32,6 +32,18 @@ as a trailing axis, ``[K, Vmax, S(, F)]``: each sweep is one
 F = S·F for the whole micro-batch. Per-lane masks on the device stop each
 lane where its solo run would stop, so every lane's state and counters
 are its solo run's.
+
+``Engine(plan, group=...)`` is the multi-device path, the reference's
+``shard_map`` over a 1-d mesh: one rank of a ``torch.distributed`` process
+group takes the place of one device. Each rank sweeps its block of ``K /
+world`` partitions (``plan.shard_plan``) with the same kernels; the
+exchange scatters the block's replicated slots into a global frontier,
+all-reduces it across the ranks and gathers it back through the
+glob-form ``masked_update`` kernel (``kernels.exchange_sharded``); the
+superstep's change flags (per lane in a batch), the local-iteration
+counts (max: the critical path) and the final master-slot gather are
+all-reduced too. Collectives sit only there, so local fixed points run
+rank-locally, like the paper's workers between synchronisations.
 """
 from __future__ import annotations
 
@@ -43,9 +55,10 @@ import torch
 from torch.func import vmap
 
 from .. import obs as _obs
+from ..core import collectives as C
 from . import kernels
 from .errors import BatchAxisError, WarmStateError
-from .plan import PartitionPlan
+from .plan import PartitionPlan, shard_plan
 from .state import SCALAR, StateSpec
 
 
@@ -211,19 +224,31 @@ def _sweep(plan: PartitionPlan, prog: EdgeProgram, state, ctx, *,
 
 
 def _exchange(plan: PartitionPlan, values, combine: str, *,
-              use_kernels: bool):
+              use_kernels: bool, group=None):
     """Combine replicated slots across partitions; private slots unchanged.
 
     values [K, Vmax(, ...)] -> same shape. With ``use_kernels`` one launch
     over the plan's replica layout (``kernels.exchange``); else the
-    reference's scatter-and-gather chain (``kernels.exchange_ref``).
+    reference's scatter-and-gather chain (``kernels.exchange_ref``). With
+    a ``group``, ``plan`` is this rank's block and the combine runs across
+    the ranks (``kernels.exchange_sharded``, closed by the
+    ``masked_update`` kernel, or its plain version without
+    ``use_kernels``).
     """
-    fn = kernels.exchange if use_kernels else kernels.exchange_ref
+    if group is None:
+        fn = kernels.exchange if use_kernels else kernels.exchange_ref
+    else:
+        update = kernels.masked_update if use_kernels \
+            else kernels.masked_update_ref
+
+        def fn(p, x, c):
+            return kernels.exchange_sharded(p, x, c, group, update=update)
     return _planes(fn, plan, values, combine)
 
 
-def _gather_global(plan: PartitionPlan, state):
-    """Master-slot scatter of the final local states to a global [V(, F)]."""
+def _gather_global(plan: PartitionPlan, state, group=None):
+    """Master-slot scatter of the final local states to a global [V(, F)]
+    (summed across the ranks of ``group``: each vertex has one master)."""
     tail = tuple(state.shape[2:])
     idx = plan.index64("local2global").reshape(-1)
     out = torch.zeros((plan.n_vertices,) + tail, dtype=torch.float32,
@@ -233,14 +258,29 @@ def _gather_global(plan: PartitionPlan, state):
     present = torch.zeros(plan.n_vertices, dtype=torch.int32,
                           device=state.device)
     present.index_add_(0, idx, plan.is_master.reshape(-1).to(torch.int32))
+    if group is not None:
+        C.all_reduce_(out, "sum", group)
+        C.all_reduce_(present, "sum", group)
     return out, present > 0
+
+
+def _across(flags: torch.Tensor, group) -> torch.Tensor:
+    """Boolean ``flags`` OR-ed across the ranks of ``group`` (an int32
+    max), or ``flags`` themselves without one."""
+    if group is None:
+        return flags
+    return C.all_reduce_(flags.to(torch.int32).reshape(-1), "max",
+                         group).view(flags.shape) > 0
 
 
 def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
               prev: torch.Tensor | None, max_supersteps: int,
-              max_local_iters: int, use_kernels: bool):
+              max_local_iters: int, use_kernels: bool, group=None):
     """The superstep loop. Returns (state, supersteps, local_iters,
-    converged)."""
+    converged). With a ``group``, ``plan`` is this rank's block: the local
+    phase runs on it alone, the exchange, the superstep's change test and
+    the final gather run across the ranks, and ``local_iters`` is the
+    largest rank's (the critical path)."""
     ctx = prog.prepare(plan, kw)
     state0 = prog.init(plan, ctx) if prev is None \
         else prog.warm_init(plan, prev, ctx)
@@ -264,20 +304,26 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         st, steps, litot, changed = state0, 0, 0, True
         while changed and steps < max_supersteps:
             st1, li = local_phase(st)
-            st2 = _exchange(plan, st1, prog.combine, use_kernels=use_kernels)
-            changed = bool((st2 != st).any())
+            st2 = _exchange(plan, st1, prog.combine,
+                            use_kernels=use_kernels, group=group)
+            changed = bool(_across((st2 != st).any(), group))
             st, steps, litot = st2, steps + 1, litot + li
         converged = not changed   # still changing => the cap cut us off
     else:  # partial aggregation: lock-step, fixed superstep count
         st = state0
         for _ in range(max_supersteps):
             agg = _sweep(plan, prog, st, ctx, use_kernels=use_kernels)
-            full = _exchange(plan, agg, prog.combine, use_kernels=use_kernels)
+            full = _exchange(plan, agg, prog.combine,
+                             use_kernels=use_kernels, group=group)
             st = prog.apply(st, full, ctx)
         steps = litot = max_supersteps
         converged = True          # fixed-iteration programs by design
 
-    glob, present = _gather_global(plan, st)
+    if group is not None:   # local sweeps differ per rank: the critical path
+        litot = int(C.all_reduce_(torch.tensor([litot], dtype=torch.int32,
+                                               device=st.device), "max",
+                                  group))
+    glob, present = _gather_global(plan, st, group)
     return prog.finalize(glob, present, plan, ctx), steps, litot, converged
 
 
@@ -297,7 +343,8 @@ def _lane_program(prog: EdgeProgram, plan: PartitionPlan) -> EdgeProgram:
 
 def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
                batched_kw: dict, prev: torch.Tensor | None,
-               max_supersteps: int, max_local_iters: int, use_kernels: bool):
+               max_supersteps: int, max_local_iters: int, use_kernels: bool,
+               group=None):
     """The superstep loop for S lanes at once, each lane the query
     ``{**kw, **lane of batched_kw}``. Returns (state [S, V(, F)],
     supersteps [S], local_iters [S], converged [S]), each lane's equal to
@@ -307,7 +354,9 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     for all of them. A lane whose solo loop would have stopped keeps its
     state and counters: the masks ``active`` (superstep loop) and ``lact``
     (local phase) stay on the device, and each loop reads the device once
-    a sweep and once a superstep, as the solo loop does.
+    a sweep and once a superstep, as the solo loop does. With a ``group``
+    the lanes' change flags and local-iteration counts are reduced with
+    max across the ranks, as :func:`_run_loop` reduces a solo run's.
     """
     n = int(next(iter(batched_kw.values())).shape[0])
     ctx = vmap(lambda b: prog.prepare(plan, {**kw, **b}))(batched_kw)
@@ -356,8 +405,10 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         while go:
             st1, li = local_phase(st, active)
             st2 = where(active, _exchange(plan, st1, prog.combine,
-                                          use_kernels=use_kernels), st)
-            changed = torch.where(active, differs(st2, st), changed)
+                                          use_kernels=use_kernels,
+                                          group=group), st)
+            changed = torch.where(active, _across(differs(st2, st), group),
+                                  changed)
             steps += active
             litot += li
             active = active & changed & (steps < max_supersteps)
@@ -368,13 +419,15 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         for _ in range(max_supersteps):
             agg = _sweep(plan, lane, st, ctx, use_kernels=use_kernels)
             full = _exchange(plan, agg, prog.combine,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, group=group)
             st = lane.apply(st, full, ctx)
         steps = litot = torch.full((n,), max_supersteps, dtype=torch.int32,
                                    device=dev)
         converged = torch.ones(n, dtype=torch.bool, device=dev)
 
-    glob, present = _gather_global(plan, st)            # [V, S(, F)]
+    if group is not None:   # the critical path, lane by lane
+        C.all_reduce_(litot, "max", group)
+    glob, present = _gather_global(plan, st, group)     # [V, S(, F)]
     state = vmap(lambda g, c: prog.finalize(g, present, plan, c),
                  in_dims=(1, 0))(glob, ctx)
     return state.contiguous(), steps, litot, converged
@@ -386,13 +439,36 @@ class Engine:
 
     ``use_kernels`` (default True) routes sweeps and exchanges through the
     Hopper kernels; False runs the plain PyTorch versions.
+
+    ``group`` (a ``torch.distributed`` process group, e.g.
+    ``torch.distributed.group.WORLD``) shards the partitions over its
+    ranks, the reference's ``Engine(plan, mesh=...)``: every rank builds
+    an Engine on the same whole plan and makes the same calls; each sweeps
+    its own ``K / world`` partitions (``plan.shard_plan``, made at its first
+    dispatch; ``K % world != 0`` raises), the exchange combines across the
+    ranks (``kernels.exchange_sharded``), and every rank returns the whole
+    result. ``None`` (the default) is the single-device path.
     """
     plan: PartitionPlan
     use_kernels: bool = True
+    group: Any = None
 
     def with_plan(self, plan: PartitionPlan) -> "Engine":
         """Rebind to a (patched or recompiled) plan."""
         return dataclasses.replace(self, plan=plan)
+
+    def _local_plan(self) -> PartitionPlan:
+        """The plan this process sweeps: the whole plan, or with a group
+        this rank's block of it, made once per Engine (as the reference
+        keeps its placed plan)."""
+        if self.group is None:
+            return self.plan
+        cached = self.__dict__.get("_plan_local")
+        if cached is None:
+            cached = shard_plan(self.plan, C.rank(self.group),
+                                C.world(self.group))
+            object.__setattr__(self, "_plan_local", cached)
+        return cached
 
     def _check_warm(self, prog: EdgeProgram, warm_state,
                     batch: int | None = None):
@@ -435,7 +511,8 @@ class Engine:
             return contextlib.nullcontext()
         health = _obs.plan_health(self.plan)
         rec.event("engine.dispatch", program=prog.name, bucket=bucket,
-                  epoch=self.plan.epoch, sharded=False,
+                  epoch=self.plan.epoch,
+                  sharded=self.group is not None,
                   exchange_per_superstep=health["exchange_per_superstep"],
                   edge_lane_occupancy_max=health["edge_lane_occupancy_max"],
                   vertex_lane_occupancy_max=
@@ -453,8 +530,8 @@ class Engine:
         steps = _steps(prog, max_supersteps)
         prev = self._check_warm(prog, warm_state)
         with self._obs_dispatch(prog, 0):
-            out = _run_loop(self.plan, prog, kw, prev, steps,
-                            max_local_iters, self.use_kernels)
+            out = _run_loop(self._local_plan(), prog, kw, prev, steps,
+                            max_local_iters, self.use_kernels, self.group)
         return _pending(self.plan, out)
 
     def run(self, prog: EdgeProgram, max_supersteps: int | None = None,
@@ -492,8 +569,9 @@ class Engine:
         n_batch = lanes.pop()
         prev = self._check_warm(prog, warm_state, n_batch)
         with self._obs_dispatch(prog, n_batch):
-            out = _run_lanes(self.plan, prog, kw, batched_kw, prev, steps,
-                             max_local_iters, self.use_kernels)
+            out = _run_lanes(self._local_plan(), prog, kw, batched_kw, prev,
+                             steps, max_local_iters, self.use_kernels,
+                             self.group)
         return _pending(self.plan, out)
 
     def run_batched(self, prog: EdgeProgram, batched_kw: dict,

@@ -17,6 +17,7 @@ from repro_torch import engine as TE
 from repro_torch.core import dfep as TD
 from repro_torch.core import graph as TG
 from repro_torch.engine import kernels as TK
+from repro_torch.engine import plan as TP
 
 COMBINES = ("min", "max", "add")
 ADD_ATOL = 1e-5
@@ -254,6 +255,98 @@ def test_exchange_matches_plain_on_card():
         if kernels:
             break
     assert len(kernels) == 1 and "exchange_kernel" in kernels[0], kernels
+
+
+@pytest.fixture
+def nccl_world1(tmp_path):
+    """A one-rank NCCL process group on the card (file rendezvous under
+    ``tmp_path``), destroyed after the test."""
+    _card()
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _blocks(plan, world: int = 2):
+    """The plan's rank blocks at ``world`` ranks (``shard_plan``)."""
+    return [TP.shard_plan(plan, r, world) for r in range(world)]
+
+
+@pytest.mark.gpu
+def test_exchange_sharded_matches_plain_on_card(nccl_world1):
+    """``exchange_sharded`` over a one-rank NCCL group, on rank blocks of
+    a fresh plan and of one with a live append region, against its plain
+    version (``update=masked_update_ref``) and the single-device chain on
+    the block: min and max exact, add within ADD_ATOL (the frontier's
+    scatter adds in another order each call); scalar, F = 8 and 32 lanes
+    ([K, Vmax, 32]). One ``masked_update`` launch a call, no
+    ``exchange``."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, plan in _plans(dev).items():
+        for r, block in enumerate(_blocks(plan)):
+            for tail in ((), (8,), (32,)):
+                shape = (block.k, block.v_max) + tail
+                x = torch.rand(shape, generator=gen, device=dev)
+                inf = torch.rand(shape, generator=gen, device=dev) < 0.2
+                for combine in COMBINES:
+                    vals = {"min": torch.where(inf, float("inf"), x * 10),
+                            "max": x, "add": x / 100}[combine]
+                    before = dict(TK.LAUNCHES)
+                    got = TK.exchange_sharded(block, vals, combine,
+                                              nccl_world1)
+                    torch.cuda.synchronize()
+                    assert TK.LAUNCHES["masked_update"] == \
+                        before["masked_update"] + 1
+                    assert TK.LAUNCHES["exchange"] == before["exchange"]
+                    key = (name, r, tail, combine)
+                    plain = TK.exchange_sharded(
+                        block, vals, combine, nccl_world1,
+                        update=TK.masked_update_ref)
+                    chain = TK.exchange_ref(block, vals, combine)
+                    for want in (plain, chain):
+                        if combine == "add":
+                            torch.testing.assert_close(
+                                got, want, rtol=0, atol=ADD_ATOL,
+                                msg=str(key))
+                        else:
+                            assert torch.equal(got, want), key
+
+
+@pytest.mark.gpu
+def test_shard_plan_layouts_on_card():
+    """A rank block made on the card builds its own kernel layouts from
+    its own rows, equal to those of a plan built from the same rows; the
+    whole plan's memoised layouts are not sliced."""
+    dev = _card()
+    for name, plan in _plans(dev).items():
+        for world in (2, 4):
+            k_loc = plan.k // world
+            for r, block in enumerate(_blocks(plan, world)):
+                for memo in ("_segment_layout", "_gspmm_layout",
+                             "_exchange_layout"):
+                    assert memo in block.__dict__, (name, memo)
+                rows = slice(r * k_loc, (r + 1) * k_loc)
+                fields = {f: getattr(plan, f)[rows].cpu().numpy()
+                          for f in TP.TENSOR_FIELDS}
+                fields.update({f: getattr(plan, f)
+                               for f in TP.STATIC_FIELDS}, k=k_loc)
+                fresh = TP.plan_from_numpy(fields, device=dev)
+                pairs = [(TK.segment_layout(block), TK.segment_layout(fresh)),
+                         (TK.gspmm_layout(block), TK.gspmm_layout(fresh)),
+                         (TK.exchange_layout(block),
+                          TK.exchange_layout(fresh))]
+                for a, b in pairs:
+                    for f in dataclasses.fields(a):
+                        x, y = getattr(a, f.name), getattr(b, f.name)
+                        if isinstance(x, torch.Tensor):
+                            assert torch.equal(x, y), (name, f.name)
+                        elif not dataclasses.is_dataclass(x):
+                            assert x == y, (name, f.name)
 
 
 @pytest.mark.gpu

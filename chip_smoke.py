@@ -57,7 +57,22 @@ non-zero with no "ok" line):
               (min programs bit for bit, add within SERVE_ADD_ATOL), every
               micro-batch through the kernels; ``serve`` and ``drain`` (a
               second stream of SERVE_DRAIN) timed. The counters are zeroed
-              just before ``serve`` and read just after.
+              just before ``serve`` and read just after. Then a second
+              server with ``ledger=CostLedger()`` answers the same
+              requests: each answer equal to the first server's, the
+              ledger's device seconds within LEDGER_DEVICE_RTOL of the
+              server's ``device_time_s``, one ledger request a completed
+              one, each dispatched batch's utilization (the cost model's
+              least time over its device time) in (0, LEDGER_UTIL_MAX],
+              every kernel of the path launched; per-tenant device
+              seconds, utilization by program and bucket and the cost
+              model's hits, misses and compile ms are logged. The q/s of
+              the stream without and with a ledger is timed in turns,
+              and a traced run of SERVE_TRACED requests under a monitor
+              whose objective no request meets must dump one flight
+              bundle for the alert; the bundle, a Chrome trace and the
+              ledger are rendered by ``report`` and ``usage`` and
+              printed.
 5. stream   — streaming maintenance on the main phase's graph and DFEP
               owner, through the user entry points: ``StreamSession(g,
               StreamConfig(k=16, chunk_size=256), owner=owner)`` with the
@@ -327,6 +342,18 @@ HUB_REPEATS = 3
 #: bound); min programs bit for bit.
 SERVE_LANES, SERVE_SMALL, SERVE_COLD_ROWS = 32, 8, (2, 5)
 SERVE_TENANTS, SERVE_REQUESTS, SERVE_DRAIN = 4, 256, 64
+#: The ledger-wired server: its device seconds must reconcile with the
+#: server's device_time_s within LEDGER_DEVICE_RTOL (the reference's
+#: accounting invariant), and each dispatched batch's utilization (the
+#: cost model's least time over the measured time) must lie in
+#: (0, LEDGER_UTIL_MAX]: above 1 the count prices work the batch did not
+#: do; the 5% allow for the host clock around the copy to the host.
+LEDGER_DEVICE_RTOL, LEDGER_UTIL_MAX = 0.01, 1.05
+#: Requests of the traced run whose forced alert dumps a flight bundle.
+SERVE_TRACED = 64
+#: Turns of (plain, ledger, ledger, plain) serves timing the ledger's
+#: host cost: one turn's two ratios spread by a third on the card.
+LEDGER_QPS_PAIRS = 3
 SERVE_ADD_ATOL = 1e-5
 SERVE_KERNELS = ("segment_reduce", "exchange", "gspmm")
 #: Lane widths at which segment_reduce and exchange are timed: a full
@@ -1067,6 +1094,7 @@ def phase_serve(g, owner):
     require(len(drained) == SERVE_DRAIN
             and all(r.error is None for r in drained), "drain: results")
     srv.close()
+    ledger = _serve_ledger(G, E, plan, g, reqs, out)
     result = {
         "requests": SERVE_REQUESTS, "tenants": SERVE_TENANTS,
         "serve_s": t_serve, "qps": SERVE_REQUESTS / t_serve,
@@ -1084,7 +1112,174 @@ def phase_serve(g, owner):
         "drain_s": t_drain, "drain_qps": SERVE_DRAIN / t_drain}
     log({"phase": "serve.server", **result})
     return {"plan_cache": cache_t, "multi_source": ms, "run_batched": rb,
-            "server": result, "launches": serve_launches}
+            "server": result, "ledger": ledger, "launches": serve_launches}
+
+
+def _serve_ledger(G, E, plan, g, reqs, first) -> dict:
+    """A GraphServer with a CostLedger answers the serve phase's requests
+    again: each answer equal to the ledger-less server's (min programs bit
+    for bit, add within SERVE_ADD_ATOL), the ledger's device seconds
+    within LEDGER_DEVICE_RTOL of the server's device_time_s, one request
+    in it per completed one, each dispatched batch's utilization in
+    (0, LEDGER_UTIL_MAX]. Then the same stream's q/s without and with a
+    ledger in LEDGER_QPS_PAIRS turns (plain, ledger, ledger, plain; the
+    cost models already made; medians compared), and a traced run of SERVE_TRACED requests whose
+    monitor cannot meet its objective: the armed flight recorder's bundle
+    and a Chrome trace, rendered by ``report`` and ``usage``."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.engine import kernels
+    from repro_torch.obs import profile, report, usage
+
+    batches = []
+
+    class Priced(G.GraphServer):
+        """The server, with each dispatched batch's bucket kept beside the
+        samples its completion posts."""
+        def _complete(self, fl):
+            n0 = len(self.ledger.samples)
+            done = G.GraphServer._complete(self, fl)
+            posted = [x for x in self.ledger.samples[n0:]
+                      if not x.from_cache]
+            if posted:
+                batches.append({"program": posted[0].program,
+                                "bucket": fl.bucket,
+                                "device_s": sum(x.device_s for x in posted),
+                                "utilization": posted[0].utilization})
+            return done
+
+    class Kept(obs.CostLedger):
+        """The ledger, keeping every posted sample for the checks."""
+        def __init__(self):
+            super().__init__()
+            self.samples = []
+
+        def post(self, sample):
+            self.samples.append(sample)
+            super().post(sample)
+
+    profile.reset_models()
+    led = Kept()
+    srv = Priced(E.Engine(plan), g, ledger=led)
+    before = dict(kernels.LAUNCHES)
+    out, t_serve = wall(lambda: srv.serve(reqs))
+    launches = _delta(before, kernels.LAUNCHES)
+    for name in SERVE_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched by the ledger's server")
+    worst = 0.0
+    for a, b in zip(first, out):
+        require(b.error is None and b.request is a.request,
+                "ledger serve: results")
+        if a.request.entry.oracle_atol:
+            err = float(np.abs(b.value - a.value).max())
+            worst = max(worst, err)
+            require(err <= SERVE_ADD_ATOL, f"ledger serve {a.request.kind}:"
+                    f" max abs {err} vs the ledger-less server's")
+        else:
+            require(np.array_equal(b.value, a.value),
+                    f"ledger serve {a.request.kind} {a.request.params}: "
+                    "differs from the ledger-less server's")
+    tot = led.totals()
+    dev = srv.metrics.device_time_s
+    require(dev > 0 and abs(tot["device_s"] - dev)
+            <= LEDGER_DEVICE_RTOL * dev,
+            f"ledger device_s {tot['device_s']} vs device_time_s {dev}")
+    require(tot["requests"] == srv.metrics.n_completed == len(reqs),
+            f"ledger requests {tot['requests']} vs completed "
+            f"{srv.metrics.n_completed} of {len(reqs)}")
+    utils = [x.utilization for x in led.samples if not x.from_cache]
+    require(all(0.0 < u <= LEDGER_UTIL_MAX for u in utils),
+            f"ledger utilization outside (0, {LEDGER_UTIL_MAX}]: "
+            f"{min(utils)}..{max(utils)}")
+    models = list(profile._MODELS.values())
+    require(all(m.error is None and m.unmodeled_ops == 0 for m in models),
+            f"cost models: {[m for m in models if m.error]}")
+    stats = profile.profile_stats()
+    snap = led.snapshot()
+    by_key = {}
+    for b in batches:
+        key = f"{b['program']}@{b['bucket']}"
+        by_key.setdefault(key, []).append(b["utilization"])
+    srv.close()
+    result = {
+        "requests": len(reqs), "serve_s": t_serve,
+        "qps": len(reqs) / t_serve, "device_s": tot["device_s"],
+        "device_time_s": dev, "cached": tot["cached"],
+        "dispatched": tot["dispatched"], "batches": len(batches),
+        "add_max_abs_vs_ledgerless": worst,
+        "tenants": {t: {"device_s": a["device_s"],
+                        "utilization": a["utilization"],
+                        "requests": a["requests"]}
+                    for t, a in snap["tenants"].items()},
+        "utilization": {"min": min(utils), "max": max(utils),
+                        "by_program_bucket": {
+                            k: {"n": len(v), "min": min(v), "max": max(v)}
+                            for k, v in sorted(by_key.items())}},
+        "cost_models": {**stats, "compile_ms": {
+            f"{m.program}@{m.bucket}": 1e3 * m.compile_s for m in models}},
+        "launches": launches}
+    log({"phase": "serve.ledger", **result})
+
+    qps = {"plain": [], "ledger": []}
+    for name in ("plain", "ledger", "ledger", "plain") * LEDGER_QPS_PAIRS:
+        one = G.GraphServer(E.Engine(plan), g,
+                            ledger=obs.CostLedger() if name == "ledger"
+                            else None)
+        _, t = wall(lambda: one.serve(reqs))
+        one.close()
+        qps[name].append(len(reqs) / t)
+    overhead = {"qps": qps, "ledger_over_plain": float(
+        np.median(qps["ledger"]) / np.median(qps["plain"]))}
+    log({"phase": "serve.ledger.qps", **overhead})
+
+    glob = obs.get_ledger()
+    glob.reset()
+    rec = obs.get()
+    rec.reset()
+    rec.enable()
+    mon = obs.Monitor([obs.SLOPolicy(name="forced", tenant=reqs[0].tenant,
+                                     program=reqs[0].kind,
+                                     latency_objective_s=1e-9,
+                                     min_samples=1, fast_window_s=60.0,
+                                     slow_window_s=60.0)],
+                      eval_interval_s=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        fr = obs.FlightRecorder(tmp, max_bundles=4)
+        disarm = fr.arm(mon)
+        traced = G.GraphServer(E.Engine(plan), g, ledger=glob, monitor=mon)
+        traced.serve(reqs[:SERVE_TRACED])
+        traced.close()
+        disarm()
+        end = fr.dump("serve.end")
+        n_events = obs.export_chrome_trace(f"{tmp}/trace.json")
+        rec.disable()
+        bundles = fr.bundles()
+        alerts = [json.loads(b.read_text())["reason"] for b in bundles
+                  if b != end]
+        require(alerts == ["alert.burn_rate"],
+                f"forced alert bundles: {alerts}")
+        texts = {"report_alert": report.render(report.load(str(
+                     bundles[0]))),
+                 "report_trace": report.render(report.load(
+                     f"{tmp}/trace.json")),
+                 "usage_end": usage.render(usage.load(str(end)))}
+    mon.close()
+    rec.reset()
+    tenants = sorted({r.tenant for r in reqs[:SERVE_TRACED]})
+    require("INCIDENT  alert.burn_rate" in texts["report_alert"]
+            and "serve.dispatch" in texts["report_trace"]
+            and all(t in texts["usage_end"] for t in tenants),
+            "report/usage renders")
+    require(glob.totals()["requests"] == SERVE_TRACED,
+            f"traced ledger requests {glob.totals()['requests']}")
+    glob.reset()
+    for name, text in texts.items():
+        print(f"--- {name} ---\n{text}", flush=True)
+    return {**result, "qps_overhead": overhead,
+            "traced": {"requests": SERVE_TRACED, "chrome_events": n_events,
+                       "alert_bundles": len(alerts)}}
 
 
 # ---------------------------------------------------------------------------
@@ -2089,42 +2284,24 @@ def _patched_like(plan, gen, arrivals: int = 32):
 
 
 def _seg_bound(plan, f: int = 1) -> tuple[float, str]:
-    """Least time for segment_reduce on this plan: each live message read
-    once and combined once, the masks and per-target indices read once,
-    each aggregate written once."""
-    kv, ke = plan.k * plan.v_max, plan.k * plan.e_max
-    live = int(plan.emask.sum())
-    slot = torch.arange(plan.e_max, device=plan.device)[None, :]
-    append_live = int((plan.emask & (slot >= plan.csr_fill[:, None])).sum())
-    nbytes = (4 * f * live + 2 * ke + 5 * kv + 4 * plan.k
-              + 4 * append_live + 4 * f * kv)
-    return _bound(nbytes, f * live)
+    """Least time for segment_reduce on this plan, from its work count
+    (``kernels.segment_reduce_work``, which the cost model prices too)."""
+    from repro_torch.engine import kernels
+    return _work_bound(kernels.segment_reduce_work(plan, f))
 
 
 def _mu_bound(plan, f: int = 1) -> tuple[float, str]:
-    """Least time for the fused masked_update: private live slots read
-    state, replicated live slots read their index and their vertex's glob
-    row (each distinct row once), both masks read and every slot written."""
-    kv = plan.k * plan.v_max
-    rep = plan.vmask & plan.replicated
-    private = int((plan.vmask & ~plan.replicated).sum())
-    n_rep = int(rep.sum())
-    rows = int(torch.unique(plan.local2global[rep]).numel())
-    nbytes = 4 * f * private + 4 * n_rep + 4 * f * rows + 2 * kv + 4 * f * kv
-    return _bound(nbytes, 0)
+    """Least time for the fused masked_update on this plan
+    (``kernels.masked_update_work``)."""
+    from repro_torch.engine import kernels
+    return _work_bound(kernels.masked_update_work(plan, f))
 
 
 def _exchange_bound(plan, f: int = 1) -> tuple[float, str]:
-    """Least time for the exchange on this plan: each live slot's value
-    read once, each group's slot indices (and its pointer) read once, both
-    masks read once and every slot written once."""
-    kv = plan.k * plan.v_max
-    live = int(plan.vmask.sum())
-    rep = plan.vmask & plan.replicated
-    groups = int(torch.unique(plan.local2global[rep]).numel())
-    nbytes = (4 * f * live + 4 * (int(rep.sum()) + groups + 1) + 2 * kv
-              + 4 * f * kv)
-    return _bound(nbytes, 0)
+    """Least time for the exchange on this plan
+    (``kernels.exchange_work``)."""
+    from repro_torch.engine import kernels
+    return _work_bound(kernels.exchange_work(plan, f))
 
 
 def _exchange_plans(g, owner, plan, patched) -> dict:
@@ -2272,22 +2449,9 @@ def _lane_timing(Kn, plan, gen, times) -> dict:
 
 def _gspmm_bound(plan, f: int, per_feature: bool = False
                  ) -> tuple[float, str]:
-    """Least time for gspmm on this plan: per live half-edge its neighbour
-    index and its weight (4·F bytes of them with per-feature weights); per
-    slot the two masks; per target ``last_slot`` and ``vmask``; per live
-    append slot its target; each distinct live feature row read once; each
-    output row written once. Operations: a multiply and a combine per
-    feature per live half-edge."""
-    kv, ke = plan.k * plan.v_max, plan.k * plan.e_max
-    live = int(plan.emask.sum())
-    slot = torch.arange(plan.e_max, device=plan.device)[None, :]
-    append_live = int((plan.emask & (slot >= plan.csr_fill[:, None])).sum())
-    base = torch.arange(plan.k, device=plan.device)[:, None] * plan.v_max
-    rows = int(torch.unique((base + plan.edge_nbr.long())[plan.emask]).numel())
-    weight = 4 * f if per_feature else 4
-    nbytes = ((4 + weight) * live + 2 * ke + 5 * kv + 4 * plan.k
-              + 4 * append_live + 4 * f * rows + 4 * f * kv)
-    return _bound(nbytes, 2 * f * live)
+    """Least time for gspmm on this plan (``kernels.gspmm_work``)."""
+    from repro_torch.engine import kernels
+    return _work_bound(kernels.gspmm_work(plan, f, per_feature))
 
 
 def _spmm_matrix(plan):
@@ -2418,6 +2582,12 @@ def _gspmm_timing(Kn, plan, gen, times):
                          plan, lay.seg))[1]}
     log({"phase": "kernels.gspmm.timing", **out})
     return out
+
+
+def _work_bound(work: tuple[int, int]) -> tuple[float, str]:
+    """``_bound`` of a kernel's ``(operations, bytes)`` work count."""
+    flops, nbytes = work
+    return _bound(nbytes, flops)
 
 
 def _bound(nbytes: int, flops: int) -> tuple[float, str]:

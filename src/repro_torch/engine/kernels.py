@@ -52,6 +52,12 @@ PyTorch versions.
     (:func:`exchange_sharded`), whose ``glob`` is all-reduced across the
     ranks before the update; no single-device path launches it.
 
+Work counts: ``segment_reduce_work``, ``gspmm_work``, ``exchange_work`` and
+``masked_update_work`` give the (operations, bytes) of one launch on a
+plan (each input read once, each output written once), from the plan's
+live counts (:func:`plan_counts`); ``chip_smoke.py``'s bounds and the cost
+model (``repro_torch.obs.profile``) both price the kernels with them.
+
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) for CPU tensors; there is no fallback from one to the
 other. Each launch adds one to :data:`LAUNCHES`, so a run can show that it
@@ -66,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -849,3 +856,89 @@ def exchange_layout_ref(plan, values: torch.Tensor, combine: str = "min"
                                     size, output_size=lay.n_slots)
     out[slots] = acc[group]
     return out.view(values.shape)
+
+
+# ---------------------------------------------------------------------------
+# Work counts: the least work of one launch, for the kernels' bounds
+# (``chip_smoke.py``) and the cost model (``repro_torch.obs.profile``)
+# ---------------------------------------------------------------------------
+
+class PlanCounts(NamedTuple):
+    """The live counts of a plan that the kernels' work depends on."""
+    live: int            # live half-edges (emask)
+    append_live: int     # live half-edges of the append region
+    nbr_rows: int        # distinct live neighbour rows (partition, slot)
+    live_slots: int      # live vertex slots (vmask)
+    private: int         # live slots not replicated
+    rep_slots: int       # live replicated slots
+    rep_groups: int      # distinct vertices with a live replicated slot
+
+
+def plan_counts(plan) -> PlanCounts:
+    """The plan's :class:`PlanCounts`, read once (a few host reads) and
+    kept on the plan."""
+    def make():
+        slot = torch.arange(plan.e_max, device=plan.device)[None, :]
+        base = torch.arange(plan.k, device=plan.device)[:, None] * plan.v_max
+        rep = plan.vmask & plan.replicated
+        return PlanCounts(
+            live=int(plan.emask.sum()),
+            append_live=int((plan.emask
+                             & (slot >= plan.csr_fill[:, None])).sum()),
+            nbr_rows=int(torch.unique(
+                (base + plan.edge_nbr.long())[plan.emask]).numel()),
+            live_slots=int(plan.vmask.sum()),
+            private=int((plan.vmask & ~plan.replicated).sum()),
+            rep_slots=int(rep.sum()),
+            rep_groups=int(torch.unique(plan.local2global[rep]).numel()))
+    return plan._memo("_plan_counts", make)
+
+
+def segment_reduce_work(plan, f: int = 1) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`segment_reduce` launch at width
+    ``f``: each live message read once and combined once, the masks and
+    per-target indices read once, each aggregate written once."""
+    c = plan_counts(plan)
+    kv, ke = plan.k * plan.v_max, plan.k * plan.e_max
+    nbytes = (4 * f * c.live + 2 * ke + 5 * kv + 4 * plan.k
+              + 4 * c.append_live + 4 * f * kv)
+    return f * c.live, nbytes
+
+
+def gspmm_work(plan, f: int, per_feature: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`gspmm` launch at width ``f``: per
+    live half-edge its neighbour index and its weight (4·F bytes of them
+    with per-feature weights); per slot the two masks; per target
+    ``last_slot`` and ``vmask``; per live append slot its target; each
+    distinct live feature row read once; each output row written once.
+    Operations: a multiply and a combine per feature per live half-edge."""
+    c = plan_counts(plan)
+    kv, ke = plan.k * plan.v_max, plan.k * plan.e_max
+    weight = 4 * f if per_feature else 4
+    nbytes = ((4 + weight) * c.live + 2 * ke + 5 * kv + 4 * plan.k
+              + 4 * c.append_live + 4 * f * c.nbr_rows + 4 * f * kv)
+    return 2 * f * c.live, nbytes
+
+
+def exchange_work(plan, f: int = 1) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`exchange` launch at width ``f``:
+    each live slot's value read once, each group's slot indices (and its
+    pointer) read once, both masks read once and every slot written
+    once."""
+    c = plan_counts(plan)
+    kv = plan.k * plan.v_max
+    nbytes = (4 * f * c.live_slots + 4 * (c.rep_slots + c.rep_groups + 1)
+              + 2 * kv + 4 * f * kv)
+    return 0, nbytes
+
+
+def masked_update_work(plan, f: int = 1) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`masked_update` launch at width
+    ``f`` on ``plan`` (a rank's block): private live slots read state,
+    replicated live slots read their index and their vertex's glob row
+    (each distinct row once), both masks read and every slot written."""
+    c = plan_counts(plan)
+    kv = plan.k * plan.v_max
+    nbytes = (4 * f * c.private + 4 * c.rep_slots + 4 * f * c.rep_groups
+              + 2 * kv + 4 * f * kv)
+    return 0, nbytes

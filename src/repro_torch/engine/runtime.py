@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -135,21 +136,34 @@ class EngineResult:
 class PendingResult:
     """Handle returned by :meth:`Engine.dispatch` and
     :meth:`Engine.dispatch_batched`: the result's tensors and, on the card,
-    a CUDA event recorded after the final gather and finalize.
-    ``block_until_ready()`` waits for the event; ``result()`` waits, then
-    hands the ``EngineResult`` over. The superstep loop reads the device
-    once a sweep, so by the time ``dispatch`` returns only the finalize
-    may still be running: the handle overlaps next to nothing with the
-    caller's work."""
+    CUDA events recorded before the dispatch's first launch and after the
+    final gather and finalize. ``block_until_ready()`` waits for the end
+    event; ``result()`` waits, then hands the ``EngineResult`` over. The
+    superstep loop reads the device once a sweep, so by the time
+    ``dispatch`` returns only the finalize may still be running: the
+    handle overlaps next to nothing with the caller's work, and the time
+    the dispatch held the device is :meth:`device_s`, not the wait."""
     _arrays: tuple                  # (state, supersteps, local_iters,
                                     #   converged)
     exchange_per_superstep: int
     _event: Any = None              # torch.cuda.Event, or None on the CPU
+    _start: Any = None              # a torch.cuda.Event with timing, or
+                                    #   the host clock (s) on the CPU
+    _end_s: float = 0.0             # host clock at the end on the CPU
 
     def block_until_ready(self) -> "PendingResult":
         if self._event is not None:
             self._event.synchronize()
         return self
+
+    def device_s(self) -> float:
+        """Seconds from the dispatch's first launch to its ready result:
+        the time between the start and end events on the card (waits for
+        the end event), the host time of the whole loop on the CPU."""
+        if self._event is None:
+            return self._end_s - self._start
+        self._event.synchronize()
+        return self._start.elapsed_time(self._event) * 1e-3
 
     def result(self) -> EngineResult:
         state, supersteps, local_iters, converged = \
@@ -168,14 +182,25 @@ class PendingResult:
                             steps * ex)
 
 
-def _pending(plan, out: tuple) -> PendingResult:
-    """Wrap a loop's output, with an event recorded after its last op on
-    the card."""
-    event = None
-    if out[0].device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record()
-    return PendingResult(out, plan.exchange_volume, event)
+def _start(plan) -> Any:
+    """The start mark of a dispatch, taken before its first launch: a
+    timing CUDA event recorded on the plan's card, or the host clock."""
+    if plan.device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _pending(plan, out: tuple, start) -> PendingResult:
+    """Wrap a loop's output, with an end event recorded after its last op
+    on the card (or the host clock read on the CPU)."""
+    if not isinstance(start, torch.cuda.Event):
+        return PendingResult(out, plan.exchange_volume, None, start,
+                             time.perf_counter())
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return PendingResult(out, plan.exchange_volume, event, start)
 
 
 def _steps(prog: EdgeProgram, max_supersteps: int | None) -> int:
@@ -527,12 +552,13 @@ class Engine:
                  **kw: Any) -> PendingResult:
         """Run one query; ``warm_state`` (a previous [V] result)
         initialises via ``prog.warm_init``."""
+        start = _start(self.plan)
         steps = _steps(prog, max_supersteps)
         prev = self._check_warm(prog, warm_state)
         with self._obs_dispatch(prog, 0):
             out = _run_loop(self._local_plan(), prog, kw, prev, steps,
                             max_local_iters, self.use_kernels, self.group)
-        return _pending(self.plan, out)
+        return _pending(self.plan, out, start)
 
     def run(self, prog: EdgeProgram, max_supersteps: int | None = None,
             max_local_iters: int = 100_000, warm_state=None,
@@ -551,6 +577,7 @@ class Engine:
         previous-result row per lane (rows of ``spec.fill`` cold-start
         their lane). Programs on the ``gspmm`` path (``edge_mul``) take no
         lanes: :class:`BatchAxisError`."""
+        start = _start(self.plan)
         if prog.edge_mul is not None:
             raise BatchAxisError(
                 f"program {prog.name!r} sweeps through gspmm (edge_mul), "
@@ -572,7 +599,7 @@ class Engine:
             out = _run_lanes(self._local_plan(), prog, kw, batched_kw, prev,
                              steps, max_local_iters, self.use_kernels,
                              self.group)
-        return _pending(self.plan, out)
+        return _pending(self.plan, out, start)
 
     def run_batched(self, prog: EdgeProgram, batched_kw: dict,
                     max_supersteps: int | None = None,

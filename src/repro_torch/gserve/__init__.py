@@ -9,8 +9,9 @@ into padded micro-batches (a timer-based flush bounds tail latency at low
 load), admitted under per-tenant fair shares, and answered through
 ``Engine.dispatch_batched`` (the lanes ride the kernels' feature axis)
 with an epoch-keyed result cache. ``GraphServer.from_session`` binds a
-server to a streaming session (``repro_torch.stream``); cost accounting
-(``ledger=``) waits for its module.
+server to a streaming session (``repro_torch.stream``); ``ledger=`` (a
+``repro_torch.obs.CostLedger``) prices every batch and makes admission
+and flush order cost-weighted.
 
     from repro_torch import engine as E, gserve as G
     plan = E.compile_plan_cached(g, owner, 16)

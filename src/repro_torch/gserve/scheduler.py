@@ -22,11 +22,10 @@ Coalescing rules (request.batch_key — derived from the program registry):
 
 Queues are FIFO per batch key and keys are drained in arrival order of
 their oldest request, so no tenant's query class can starve another's.
-When a usage ledger is wired (the reference's; not ported yet), draining
-becomes cost-weighted
-(``cost_of``): keys whose head tenant has burned the smallest recent
-device-time share flush first, so cheap tenants are not stuck behind a
-heavy tenant's backlog.
+When a usage ledger is wired (``GraphServer(ledger=...)``), draining
+becomes cost-weighted (``cost_of``): keys whose head tenant has burned
+the smallest recent device-time share flush first, so cheap tenants are
+not stuck behind a heavy tenant's backlog.
 
 Timer-based flush: ``next_batch(max_wait_s=...)`` *defers* a batchable key
 that cannot yet fill the largest bucket — until its oldest request has

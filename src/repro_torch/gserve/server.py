@@ -4,9 +4,12 @@ The counterpart of ``repro.gserve.server`` over the port's engine: the
 same micro-batches, cache probes, admission and results, dispatched
 through ``Engine.dispatch_batched`` (lanes on the kernels' feature axis)
 and ``Engine.dispatch`` with the engine's own ``use_kernels``, so on the
-card no request falls back to the plain versions. One part of the
-reference waits for its module: ``ledger=`` (the cost model) raises
-``NotImplementedError``.
+card no request falls back to the plain versions. A batch's device time
+(``device_time_s``, the ``serve.execute`` span's ``device_s`` and every
+ledger sample) runs from the dispatch's first launch to its result on
+the host: the port's superstep loop runs inside ``dispatch``, so the
+reference's measure, the wait for the pending result, would see only
+the finalize.
 
 The server pulls five pieces together:
 
@@ -60,6 +63,8 @@ from ..core.graph import Graph
 from ..engine.errors import ChannelError
 from ..engine.registry import ProgramEntry
 from ..engine.runtime import Engine, PendingResult
+from ..obs import profile as _profile
+from ..obs.ledger import CostSample
 from .cache import ResultCache
 from .metrics import ServeMetrics
 from .request import AdmissionError, QueryRequest, QueryResult
@@ -67,10 +72,6 @@ from .scheduler import (DEFAULT_BUCKETS, MicroBatch, MicroBatcher,
                         bucket_for, pad_params)
 
 _BATCH_DTYPES = {int: torch.int32, float: torch.float32}
-#: What the port has not ported yet (ROADMAP.md, queue 1).
-_NO_LEDGER = ("GraphServer ledger= needs the cost ledger and its cost "
-              "model, which the port does not have yet (ROADMAP.md, "
-              "queue 1: Observability)")
 _SERVER_IDS = itertools.count()   # obs provider names: serve0, serve1, ...
 
 
@@ -144,6 +145,8 @@ class _InFlight:
                                       #   to it explicitly (the pipelined
                                       #   drain interleaves batches, so
                                       #   stack nesting cannot carry it)
+    cost: object = None               # per-sweep CostModel when a usage
+                                      #   ledger is wired (None otherwise)
 
 
 class GraphServer:
@@ -172,7 +175,15 @@ class GraphServer:
     recorder's ``enabled`` flag (the observability master switch), so a
     disabled recorder keeps the serving hot path monitor-free.
 
-    ``ledger`` must be ``None``: the cost ledger is not ported yet.
+    ``ledger`` (optional, a ``repro_torch.obs.CostLedger``) turns on cost
+    accounting and cost-aware scheduling: each dispatched micro-batch is
+    priced by a memoized per-sweep ``CostModel`` (counted from the plan)
+    × its measured device time and posted per request into the ledger,
+    and both fair-share admission and flush ordering become
+    device-time-weighted (a tenant over its windowed device-time share
+    gets a proportionally smaller pending quota and drains last).  Toggle
+    at runtime with ``set_ledger`` — accounting is independent of the
+    recorder switch.
     """
 
     def __init__(self, engine: Engine, graph: Graph, *,
@@ -208,13 +219,17 @@ class GraphServer:
         # the engine keeps its use_kernels (where the reference forces its
         # XLA path): on the card every micro-batch runs the kernels
         self._front = _PlanBuffer(engine, graph, int(epoch), int(version))
-        self.set_ledger(ledger)
         # obs: one snapshot shows the whole hierarchy — this server's
         # metrics (result cache included) join the plan-cache and
         # kernel-launch providers; stats is held by weakref, so an
         # un-closed server that gets collected drops out instead of leaking
         self._obs_unregister = _obs.get().register_provider(
             f"serve{next(_SERVER_IDS)}", self.stats)
+        self.ledger = None
+        # admission/flush read windowed shares at most every 50ms — one
+        # ledger reduction per share-cache expiry, not per request
+        self._shares_cache: tuple[float, dict] = (-1.0, {})
+        self.set_ledger(ledger)
 
     @classmethod
     def from_session(cls, session, **kwargs) -> "GraphServer":
@@ -235,11 +250,31 @@ class GraphServer:
 
     # -- cost accounting ------------------------------------------------------
     def set_ledger(self, ledger) -> None:
-        """Wire a cost ledger: only ``None`` (no ledger) is supported until
-        the cost ledger is ported."""
-        if ledger is not None:
-            raise NotImplementedError(_NO_LEDGER)
-        self.ledger = None
+        """Wire (or unwire, with ``None``) a ``CostLedger``: enables batch
+        cost profiling, per-request sample posting, cost-weighted
+        admission quotas and cost-weighted flush ordering in one switch."""
+        with self._lock:
+            self.ledger = ledger
+            self._shares_cache = (-1.0, {})
+            self._batcher.cost_of = self._cost_of if ledger is not None \
+                else None
+
+    def _ledger_shares(self) -> dict[str, float]:
+        """Windowed per-tenant device-time shares, memoized for 50ms so
+        the per-request admission path never pays a ledger reduction."""
+        led = self.ledger
+        if led is None:
+            return {}
+        now = time.perf_counter()
+        expires, shares = self._shares_cache
+        if now >= expires:
+            shares = led.tenant_shares(led.window_s)
+            with self._lock:   # set_ledger swaps this tuple under the lock
+                self._shares_cache = (now + 0.05, shares)
+        return shares
+
+    def _cost_of(self, tenant: str) -> float:
+        return self._ledger_shares().get(tenant, 0.0)
 
     # -- plan double-buffering ----------------------------------------------
     def _on_plan_change(self, session, event: str) -> None:
@@ -336,6 +371,17 @@ class GraphServer:
         with self._lock:
             n_active = len(self._batcher.active_tenants() | {req.tenant})
             share = max(1, self.max_pending // n_active)
+            # cost-weighted quota: a tenant whose windowed device-time
+            # share exceeds its fair fraction has its pending quota shrunk
+            # proportionally — few-but-huge queries spend quota like
+            # many-but-tiny ones.  Tenants at/below fair share (and all
+            # tenants when no ledger is wired) keep the count-based quota.
+            shares = self._ledger_shares()
+            if shares:
+                used = shares.get(req.tenant, 0.0)
+                fair = 1.0 / n_active
+                if used > fair:
+                    share = max(1, int(share * fair / used))
             mine = self._batcher.tenant_pending(req.tenant)
             total = len(self._batcher)
             if mine >= share:
@@ -343,7 +389,9 @@ class GraphServer:
                 raise AdmissionError(
                     f"tenant {req.tenant!r} holds {mine} pending requests "
                     f">= its fair share ({share}; {self.max_pending} max "
-                    f"pending / {n_active} active tenants)")
+                    f"pending / {n_active} active tenants"
+                    + (f", cost-weighted by device-time share {used:.2f}"
+                       if shares and used > 1.0 / n_active else "") + ")")
             if total >= self.max_pending and mine > 0:
                 self.metrics.record_rejection()
                 raise AdmissionError(
@@ -457,6 +505,7 @@ class GraphServer:
         cached: dict[int, np.ndarray] = {}
         lane_of: dict[int, int] = {}
         pending = None
+        cost = None
         n_lanes = 0
         bucket = 0
         warm_lanes: frozenset = frozenset()
@@ -495,6 +544,12 @@ class GraphServer:
                 bkw = {bp.name: torch.tensor(params,
                                              dtype=_BATCH_DTYPES[bp.dtype],
                                              device=eng.plan.device)}
+                if self.ledger is not None:
+                    # memoized per (program, plan, bucket, shapes) — only
+                    # the first dispatch of a shape pays the count
+                    cost = _profile.cost_model(
+                        eng, entry.program, bucket=bucket, batched_kw=bkw,
+                        max_supersteps=steps, **kw)
                 dsid = rec.begin("serve.dispatch", parent=bsid,
                                  bucket=bucket, lanes=n_lanes,
                                  warm_lanes=len(warm_lanes)) \
@@ -513,6 +568,10 @@ class GraphServer:
                     cached[r.id] = hit
             else:
                 n_lanes = bucket = 1
+                if self.ledger is not None:
+                    cost = _profile.cost_model(
+                        eng, entry.program, bucket=None,
+                        max_supersteps=steps, **kw)
                 dsid = rec.begin("serve.dispatch", parent=bsid, bucket=1,
                                  lanes=1) if rec.enabled else None
                 pending = eng.dispatch(entry.program, max_supersteps=steps,
@@ -523,7 +582,7 @@ class GraphServer:
                                       n_lanes, bucket, len(warm_lanes))
         return _InFlight(batch, buffer, pending, lane_of, cached,
                          n_lanes, bucket, time.perf_counter(), warm_lanes,
-                         span=bsid)
+                         span=bsid, cost=cost)
 
     def _complete(self, fl: _InFlight) -> list[QueryResult]:
         """Sync one in-flight batch and materialise per-request results."""
@@ -532,18 +591,31 @@ class GraphServer:
         entry = fl.batch.requests[0].entry
         rec = _obs.get()
         msid = None
+        exec_dt = 0.0
+        sweeps = 0
         if fl.pending is not None:
             esid = rec.begin("serve.execute", parent=fl.span,
                              bucket=fl.bucket, lanes=fl.n_lanes) \
                 if rec.enabled else None
-            # execute time = device sync + host materialisation of the
-            # state block (device_time_s)
+            # the batch's device time: the dispatch's own (its superstep
+            # loop ran inside dispatch, first launch to finalize) plus the
+            # host materialisation of the state block — the denominator
+            # every ledger device_s and utilization figure reconciles
+            # against (device_time_s)
+            fl.pending.block_until_ready()
             t_exec = time.perf_counter()
             res = fl.pending.result()
             state = _host(res.state)
             ss = _host(res.supersteps).reshape(-1)
-            self.metrics.record_execute(time.perf_counter() - t_exec)
-            rec.end(esid, supersteps=int(ss.max()) if len(ss) else 0)
+            iters = _host(res.local_iters).reshape(-1)
+            exec_dt = fl.pending.device_s() + time.perf_counter() - t_exec
+            self.metrics.record_execute(exec_dt)
+            # the cost model is per sweep; the measured critical path
+            # scales it back up
+            sweeps = max(int(ss.max()) if len(ss) else 0,
+                         int(iters.max()) if len(iters) else 0, 1)
+            rec.end(esid, supersteps=int(ss.max()) if len(ss) else 0,
+                    device_s=exec_dt)
             msid = rec.begin("serve.materialize", parent=fl.span,
                              n_requests=len(fl.batch.requests)) \
                 if rec.enabled else None
@@ -610,6 +682,37 @@ class GraphServer:
         rec.end(msid)
         rec.end(fl.span, n_cached=len(fl.cached),
                 failed=fl.error is not None)
+        led = self.ledger
+        if led is not None and fl.error is None:
+            # post the batch's resolved cost per request: dispatched
+            # requests split the measured device time (and the model's
+            # flop/byte totals) evenly; cache hits post zero-device-time
+            # samples so request counts still reconcile
+            fp = fl.buffer.fingerprint()
+            disp = [r for r in fl.batch.requests if r.id not in fl.cached]
+            if fl.pending is not None and disp:
+                model = fl.cost
+                n = len(disp)
+                if model is not None and model.error is None:
+                    b_fl, b_by, b_cb = model.cost(sweeps)
+                    util = (model.attainable_s(sweeps) / exec_dt
+                            if exec_dt > 0 else 0.0)
+                else:
+                    b_fl = b_by = b_cb = util = 0.0
+                for r in disp:
+                    led.post(CostSample(
+                        tenant=r.tenant, program=r.kind, graph=fp,
+                        epoch=fl.buffer.epoch, device_s=exec_dt / n,
+                        flops=b_fl / n, hbm_bytes=b_by / n,
+                        coll_bytes=b_cb / n,
+                        supersteps=supersteps.get(r.id, 0),
+                        utilization=util))
+            for r in fl.batch.requests:
+                if r.id in fl.cached:
+                    led.post(CostSample(
+                        tenant=r.tenant, program=r.kind, graph=fp,
+                        epoch=fl.buffer.epoch, device_s=0.0,
+                        from_cache=True))
         if self.monitor is not None and rec.enabled:
             # outside the lock: observe() only touches monitor-owned rings
             for qr in out:
@@ -649,6 +752,23 @@ class GraphServer:
                                                  max_wait_s=max_wait_s)
                 buffer = self._front
                 waited = self._batcher.oldest_wait(now)
+            if (batch is not None and inflight is not None
+                    and self.ledger is not None):
+                # cost-aware overlap: pipelining a heavy tenant's dispatch
+                # under a cheap tenant's in-flight tail makes the cheap
+                # batch wait behind the heavy run on the same device — the
+                # starvation the ledger exists to stop.  Complete the
+                # in-flight batch first when the next batch's cheapest
+                # rider has more than twice its share (hysteresis so
+                # near-equal tenants keep the full pipeline overlap).
+                shares = self._ledger_shares()
+                b_cost = min(shares.get(r.tenant, 0.0)
+                             for r in batch.requests)
+                i_cost = min(shares.get(r.tenant, 0.0)
+                             for r in inflight.batch.requests)
+                if b_cost > 2.0 * i_cost:
+                    done.extend(self._complete(inflight))
+                    inflight = None
             nxt = (self._dispatch_batch(batch, buffer)
                    if batch is not None else None)
             if inflight is not None:

@@ -1192,3 +1192,52 @@ def test_stream_session_on_card_equals_cpu():
         assert lay.stats()["append_slots"] > 0
         # the layouts were built with the patch, before any query
         assert "_exchange_layout" in plan.__dict__
+
+
+
+@pytest.mark.gpu
+def test_ledger_device_time_on_card():
+    """A ledger-wired server on the card: each dispatch's device time (a
+    start event before its first launch to its end event) is positive and
+    at most the host time around it, the ledger's device seconds equal
+    the server's device_time_s within 1%, and every dispatched batch's
+    utilization lies in (0, 1.05]."""
+    import time
+
+    from repro_torch import gserve as TS
+    from repro_torch import obs
+
+    dev = _card()
+    g = TG.largest_component(TG.barabasi_albert(400, 3, seed=2, device=dev))
+    owner, _ = TD.partition(g, k=4, seed=0, max_rounds=400, stall_rounds=16,
+                            device=dev)
+    eng = TE.Engine(TE.compile_plan(g, owner, 4, device=dev))
+    for run in (lambda: eng.dispatch(TE.SSSP, source=3),
+                lambda: eng.dispatch_batched(TE.BFS,
+                                             {"source": np.arange(8)})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = run().block_until_ready()
+        host = time.perf_counter() - t0
+        assert 0.0 < pending.device_s() <= host
+
+    kept = []
+
+    class Kept(obs.CostLedger):
+        def post(self, sample):
+            kept.append(sample)
+            super().post(sample)
+
+    led = Kept()
+    srv = TS.GraphServer(eng, g, ledger=led)
+    kinds = ([("sssp", {"source": s}) for s in range(6)]
+             + [("bfs", {"source": 2}), ("wcc", {}),
+                ("pagerank", {"iters": 10})])
+    out = srv.serve([TS.QueryRequest(kind, tenant=f"t{i % 3}", params=prm)
+                     for i, (kind, prm) in enumerate(kinds)])
+    assert all(r.error is None for r in out)
+    dev_s = srv.metrics.device_time_s
+    assert abs(led.totals()["device_s"] - dev_s) <= 0.01 * dev_s
+    utils = [x.utilization for x in kept if not x.from_cache]
+    assert utils and all(0.0 < u <= 1.05 for u in utils), utils
+    srv.close()

@@ -11,8 +11,8 @@ streaming sessions (``tests/test_gserve.py``'s stream tests, and the
 session-bound channel tests of ``tests/test_gnn.py`` and
 ``tests/test_registry.py``): requests interleaved with patches give
 equal values, cache flags, batches, versions and warm-repair counts, each
-answer exact for the snapshot it was served from. ``ledger=`` is not
-ported and raises."""
+answer exact for the snapshot it was served from. ``ledger=`` wires a
+``CostLedger`` (its serving tests are in ``tests/test_torch_cost.py``)."""
 import time
 import types
 
@@ -278,13 +278,21 @@ def test_channel_mixup_shed_at_the_door():
 
 
 def test_ledger_is_not_ported():
+    """The ledger once raised ``NotImplementedError`` here; now
+    ``GraphServer(ledger=...)`` and ``set_ledger`` wire it (and unwire it
+    with ``None``), and a wired server posts one sample a request."""
+    from repro_torch.obs import CostLedger
     g, srv = _static_server()
-    with pytest.raises(NotImplementedError, match="Observability"):
-        TG.GraphServer(srv.front.engine, g, ledger=object())
-    with pytest.raises(NotImplementedError, match="cost ledger"):
-        srv.set_ledger(object())
+    led = CostLedger()
+    wired = TG.GraphServer(srv.front.engine, g, ledger=led)
+    assert wired.ledger is led and wired._batcher.cost_of is not None
+    wired.serve([TG.QueryRequest("sssp", params={"source": 1})])
+    assert led.totals()["requests"] == 1
+    srv.set_ledger(led)
+    assert srv.ledger is led
     srv.set_ledger(None)
-    assert srv.ledger is None
+    assert srv.ledger is None and srv._batcher.cost_of is None
+    wired.close()
 
 
 # ---------------------------------------------------------------------------

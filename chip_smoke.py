@@ -170,7 +170,46 @@ non-zero with no "ok" line):
               must fall outside it. The scan's inputs at the first and the
               last layer of the prompt's prefill are kept for the kernels
               phase, and the model is freed before it.
-9. kernels  — each kernel against its plain version on the main path's plan
+9. lm.moe   — attention and MoE serving at qwen2-moe-a2.7b's full width and
+              depth (24 layers, d_model 2048, 16 heads over 16 kv heads,
+              qkv bias, 60 routed experts top-4 of width 1408 plus a
+              4 × 1408 shared expert, vocab 151,936), after the lm phase's
+              model is freed: ``lm.init_params`` on the card from a seeded
+              generator (float32, 53.3 GiB), then the lm phase's prompts
+              through ``lm.forward_lm`` (first and warm; the capacity
+              drops per layer logged from ``layers.record_routing``; every
+              logit finite, ``aux`` finite and positive), ``decode`` steps
+              (ms a step) and ``Engine.generate`` of LM_NEW tokens (the
+              counters zeroed just before it: the path has no TPU-kernel
+              counterpart, and its launches are logged). Decode for token
+              s must equal the last logits of a prefill of s + 1 within
+              bf16_rel, and decode from a zeroed KV cache must fall outside
+              it, on the sequences neither prefill dropped a token of (a
+              token's capacity slot is its rank among every token routed
+              to its expert, so the two prefills drop differently): the
+              prompts' sequences free of drops, if any, and LM_DROPFREE
+              prompts, too few tokens for any expert to overflow. Then one
+              warm prefill and one decode step under ``torch.profiler``
+              (kernels, device ms and busy share, the device ms of the
+              weight casts and of the products), the port's flash scan
+              against ``scaled_dot_product_attention`` at the prefill's
+              attention shapes (a yardstick, timed only here), and peak
+              MiB.
+10. moe_dfep — before qwen2-moe is freed: the expert ids its first MoE
+              layer routed in the prefill ([B·S, 4]) through
+              ``moe_dfep.place_experts`` on the card (K = MOE_DFEP_SHARDS;
+              the counters zeroed just before it: lane_cumsum must rise;
+              rounds, ms a round and the imbalance against
+              ``naive_imbalance`` logged); then that layer with its experts
+              renamed by ``permute_expert_params`` on its prefill input:
+              every token whose experts changed must have met a top-k
+              boundary tie (broken lower index first), and every token
+              routed the same within MOE_PERM_REL of the layer as it was.
+11. lm.dense — qwen3-4b at full width and depth (36 layers, d_model 2560,
+              32 heads over 8 kv heads, qk_norm, vocab 151,936), after
+              qwen2-moe is freed: the same steps and checks, every
+              sequence free of drops.
+12. kernels — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
@@ -224,13 +263,14 @@ non-zero with no "ok" line):
               S = 1, and on the lm phase's captured layer inputs, and timed
               at the prefill shape and at S = 1, each beside its bound
               (bytes, float32 operations, and exps at the SFUs' rate).
-10. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
+13. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
-              metrics; and the falcon-mamba SMOKE model with the same
-              parameters on both: logits within bf16_rel(4), and
-              the card's greedy tokens the CPU's (up to bfloat16 ties);
+              metrics; and the falcon-mamba, qwen2-moe and qwen3-4b SMOKE
+              models with the same parameters on both: logits within
+              bf16_rel(4), and the card's greedy tokens the CPU's (up to
+              bfloat16 ties);
               then two gloo ranks run sharded DFEP and the sharded
               engine's SSSP on card 0 and on the CPU, which must give the
               same owner, rounds, state and counters.
@@ -307,10 +347,31 @@ SCAN_REL = 1e-5
 #    (cuBLAS vs the CPU's GEMMs), where greedy tokens must be the CPU's
 #    wherever the CPU's top two logits are further apart than the bound
 #    (bf16 logits tie, and a flip decides a tie).
+#  * the MoE layer with its experts renamed by a placement's permutation
+#    against the layer as it was, on the same input, relative to the
+#    largest |y|: each token's float32 combine runs in ascending expert
+#    id, which the renaming reorders, and a bfloat16 output near a
+#    rounding boundary rounds the other way: two bf16 ulps, 2^-7.
+MOE_PERM_REL = 2.0 ** -7
+#  * the port's flash scan (float32) against SDPA (bfloat16, its own
+#    kernel) at the prefill's shapes, relative to the largest |out|: both
+#    round to bfloat16 at the end, SDPA's products in bfloat16 too; a
+#    yardstick, not a check of the path.
+SDPA_REL = 2.0 ** -6
 DBLP_SCALE, K, SEED = 1.0, 16, 0
 #: The lm phase: falcon-mamba-7b at full width and depth, B prompts of S
 #: tokens, LM_NEW new tokens each.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 512, 16
+#: The lm.moe and lm.dense phases: qwen2-moe-a2.7b and qwen3-4b at full
+#: width and depth, the lm phase's batch, prompts and new tokens.
+LM_MOE_ARCH, LM_DENSE_ARCH = "qwen2-moe-a2.7b", "qwen3-4b"
+#: The MoE model's drop-free decode check: B prompts of S tokens with
+#: B · (S + 1) no more than the capacity's floor of 8 slots an expert, so
+#: no prefill can drop a token (a token routes to an expert once).
+LM_DROPFREE = (2, 3)
+#: The moe_dfep phase: DFEP places qwen2-moe's 60 experts on this many
+#: shards, from the expert ids its first MoE layer routed in the prefill.
+MOE_DFEP_SHARDS = 8
 CPU_CHECK_SCALE = 0.03
 #: The kernels each path must launch.
 MAIN_KERNELS = ("segment_reduce", "exchange")
@@ -2079,12 +2140,14 @@ def _leaves(tree):
 
 
 def _logits_along(cfg, params, prompts, tokens):
-    """Prefill ``prompts``, then decode fed ``tokens`` [B, n]: each step's
-    logits over the real vocabulary, float32 [B, n, V]."""
+    """Prefill ``prompts``, then decode fed ``tokens`` [B, n] (the caches
+    grown to hold them): each step's logits over the real vocabulary,
+    float32 [B, n, V]."""
     from repro_torch.serve import serve_step as SS
     lg, caches = SS.prefill(cfg, params, prompts)
+    b, s = prompts.shape
+    caches = SS.grow_caches(cfg, caches, b, s + tokens.shape[1])
     out = [lg[:, -1]]
-    s = prompts.shape[1]
     for k in range(tokens.shape[1] - 1):
         lg, caches = SS.decode(cfg, params, tokens[:, k:k + 1], caches, s + k)
         out.append(lg[:, -1])
@@ -2106,7 +2169,7 @@ def _greedy_agrees(tokens, logits, rel: float) -> tuple[bool, int]:
 
 def phase_lm(cfg=None, dev: str = "cuda"):
     """Mamba serving at full width and depth on the card (module docstring,
-    phase 7). Returns (the kernels' launches in ``generate``, the scan's
+    phase 8). Returns (the kernels' launches in ``generate``, the scan's
     inputs at the first and last layer of the prompt's prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2229,14 +2292,15 @@ def phase_lm(cfg=None, dev: str = "cuda"):
     return launches, captured
 
 
-def _lm_cpu_equal():
-    """falcon-mamba SMOKE with the same parameters on the card and on the
-    CPU: the card's greedy tokens, and every step's logits along them."""
+def _lm_cpu_equal(arch: str = LM_ARCH):
+    """``arch``'s SMOKE model with the same parameters on the card and on
+    the CPU: the card's greedy tokens, and every step's logits along
+    them."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve.serve_step import Engine
 
-    cfg = get_config(LM_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     card = lm.params_from_reference(cfg, lm.params_to_numpy(cpu), "cuda")
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, 16),
@@ -2257,6 +2321,346 @@ def _lm_cpu_equal():
     require(err <= bound * scale, f"SMOKE logits card vs CPU: max abs {err} "
             f"> {bound} x {scale}")
     require(ok, "the card's greedy tokens are not the CPU's")
+
+
+def _dropped(routes, batch: int) -> tuple[list, np.ndarray]:
+    """(the (token, expert) pairs each MoE call dropped, [B] bool: the
+    sequences some call dropped a token of), from
+    ``layers.record_routing``'s records. Reads the device."""
+    per_call = [int((~r.keep).sum()) for r in routes]
+    seq = np.zeros(batch, bool)
+    for r in routes:
+        seq |= (~r.keep).any(dim=1).reshape(batch, -1).any(dim=1) \
+            .cpu().numpy()
+    return per_call, seq
+
+
+def _device_profile(fn) -> dict:
+    """One warm call of ``fn`` under ``torch.profiler``: its host wall ms
+    without the profiler (best of three), the kernels it launched, their
+    summed device ms and the device's busy share of that wall time, and
+    the device ms of the weight casts and other copies (``aten::copy_``)
+    and of the products (``aten::mm``, ``aten::bmm``)."""
+    fn()
+    wall_ms = min(1e3 * wall(fn)[1] for _ in range(3))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall(fn)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    ops = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()}
+    return {"wall_ms": wall_ms, "kernels": len(kernels),
+            "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            **{f"{op}_ms": ops.get(f"aten::{op}", 0.0)
+               for op in ("copy_", "mm", "bmm")}}
+
+
+def _decode_vs_prefill(cfg, params, prompts) -> dict:
+    """Decode for token s from a prefill of the s prompt tokens against the
+    last logits of a prefill of s + 1, on the sequences neither prefill
+    dropped a token of (a token's capacity slot is its rank among every
+    token routed to its expert, so the two prefills drop differently), and
+    from a zeroed KV cache, which must fall outside the bound. Returns the
+    drops, the sequences checked and, if any, ``rel`` (max |Δ| over the
+    largest logit of those sequences)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import serve_step as SS
+
+    b, s = prompts.shape
+    with L.record_routing() as r0:
+        logits, _, caches = lm.forward_lm(cfg, params, prompts,
+                                          collect_cache=True)
+    tok = SS.greedy_token(logits[:, -1:], cfg.vocab)
+    grown = SS.grow_caches(cfg, caches, b, s + 1)
+    with L.record_routing() as r1:
+        full, _, _ = lm.forward_lm(cfg, params, torch.cat([prompts, tok], 1))
+    require(bool(torch.isfinite(full).all()), "prefill logits not finite")
+    (d0, q0), (d1, q1) = _dropped(r0, b), _dropped(r1, b)
+    ok = ~(q0 | q1)
+    out = {"prompts": [b, s], "drops": [sum(d0), sum(d1)],
+           "checked_sequences": np.flatnonzero(ok).tolist()}
+    if not ok.any():
+        return out
+    rows = torch.from_numpy(np.flatnonzero(ok)).to(prompts.device)
+    want = full[rows, -1].float()
+    scale = float(want.abs().max())
+    zeroed = {n: tuple(torch.zeros_like(t) for t in c)
+              for n, c in grown.items()}
+    out["rel"] = {}
+    for label, c in (("right", grown), ("kv_zeroed", zeroed)):
+        dec, _ = SS.decode(cfg, params, tok, c, s)
+        require(bool(torch.isfinite(dec).all()), "decode logits not finite")
+        out["rel"][label] = float((dec[rows, 0].float() - want).abs().max()
+                                  ) / scale
+    out["max_abs_logit"] = scale
+    return out
+
+
+def _with_first_moe_input(fn):
+    """(``fn()``, a copy of the input of the first ``layers.moe`` call
+    made inside it, or None)."""
+    from repro_torch.models import layers as L
+    captured, real = [], L.moe
+
+    def capture(cfg, p, x):
+        if not captured:
+            captured.append(x.clone())
+        return real(cfg, p, x)
+
+    L.moe = capture
+    try:
+        out = fn()
+    finally:
+        L.moe = real
+    return out, captured[0] if captured else None
+
+
+def _sdpa_yardstick(cfg, gen) -> dict:
+    """The port's flash scan against ``scaled_dot_product_attention`` at
+    the prefill's attention shapes (bf16 q [B, H, S, dh], k/v [B, KV, S,
+    dh], causal): device ms of each and their largest difference. SDPA is
+    timed here only; the path never calls it."""
+    from repro_torch.models import layers as L
+    h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+    dh = cfg.head_dim
+
+    def draw(heads):
+        return torch.randn((LM_BATCH, heads, LM_PROMPT, dh), generator=gen,
+                           device=gen.device).to(torch.bfloat16)
+
+    q, k, v = draw(h), draw(kv), draw(kv)
+    # SDPA's GQA: the kv heads repeated once, outside the timed call
+    k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+
+    def port():
+        return L.flash_attention(q, k, v, True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True)
+
+    a, b = port(), sdpa()
+    torch.cuda.synchronize()
+    rel = float((a.float() - b.float()).abs().max()
+                / b.float().abs().max())
+    require(rel <= SDPA_REL, f"flash scan vs SDPA: max rel {rel}")
+    return {"q_shape": list(q.shape), "kv_shape": list(k.shape),
+            "flash_scan_ms": device_ms(port), "sdpa_ms": device_ms(sdpa),
+            "max_rel_diff": rel, "bound_rel": SDPA_REL}
+
+
+def phase_moe_dfep(cfg, params, first_route, x0) -> dict:
+    """DFEP expert placement on the card (module docstring, phase 10):
+    ``place_experts`` on the expert ids the first MoE layer routed in the
+    prefill, then that layer with its experts renamed by the placement's
+    permutation against itself on the same input. Returns the path's
+    launches."""
+    from repro_torch.core import moe_dfep as MD
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    e, k = cfg.moe.n_experts, MOE_DFEP_SHARDS
+    eidx = first_route.expert_idx.cpu().numpy()
+    loads = np.bincount(eidx.reshape(-1), minlength=e).astype(float)
+    # the path: the counters from 0, one placement, read just after
+    before = _launch_counts()
+    place, t = wall(lambda: MD.place_experts(eidx, n_experts=e, k=k,
+                                             seed=SEED, device=x0.device))
+    launches = _delta(before, _launch_counts())
+    rounds = place.info["rounds"]
+    require(launches.get("lane_cumsum", 0) > 0,
+            "place_experts launched no lane_cumsum")
+    require(sorted(place.permutation.tolist()) == list(range(e)),
+            "the placement's permutation is not one of the experts")
+    require(np.bincount(place.expert_to_shard, minlength=k).max()
+            <= -(-e // k), "a shard holds more than E/K experts")
+    naive = MD.naive_imbalance(loads, k)
+
+    # the first MoE layer, its experts renamed, on its prefill input
+    p0 = lm._index(params["blocks"]["l0"]["ffn"], 0)
+    p1 = MD.permute_expert_params(p0, place.permutation)
+    with L.record_routing() as rr:
+        y0, aux0 = L.moe(cfg, p0, x0)
+        y1, aux1 = L.moe(cfg, p1, x0)
+    r0, r1 = rr
+    perm = torch.as_tensor(place.permutation, device=y0.device)
+    renamed = perm[r1.expert_idx]               # back to the old names
+    o0, o1 = r0.expert_idx.argsort(1), renamed.argsort(1)
+    same_set = (r0.expert_idx.gather(1, o0) == renamed.gather(1, o1)).all(1)
+    same = same_set & (r0.keep.gather(1, o0) == r1.keep.gather(1, o1)).all(1)
+    # a top-k boundary tie (the k-th and (k+1)-th router logits equal) is
+    # broken lower index first, so renaming may pick the other expert
+    logits = (x0.reshape(-1, cfg.d_model).to(torch.bfloat16)
+              @ p0["router"].to(torch.bfloat16)).float()
+    srt = logits.sort(dim=1, descending=True).values
+    top = cfg.moe.top_k
+    tie = srt[:, top - 1] == srt[:, top]
+    require(bool((same_set | tie).all()),
+            "renaming the experts changed a token's experts without a tie")
+    f0, f1 = (y.reshape(-1, cfg.d_model).float() for y in (y0, y1))
+    scale = float(f0[same].abs().max())
+    err = float((f1[same] - f0[same]).abs().max())
+    log({"phase": "moe_dfep", "experts": e, "shards": k,
+         "tokens": int(eidx.shape[0]), "top_k": int(eidx.shape[1]),
+         "rounds": rounds, "finalized": place.info["finalized"],
+         "wall_s": t, "ms_per_round": 1e3 * t / max(rounds, 1),
+         "launches": launches, "imbalance": place.imbalance,
+         "naive_imbalance": naive,
+         "shard_load": place.shard_load.tolist(),
+         "permuted_layer": {
+             "tokens_same_route": int(same.sum()),
+             "tokens_other_experts": int((~same_set).sum()),
+             "tokens_other_drops": int((same_set & ~same).sum()),
+             "boundary_ties": int(tie.sum()),
+             "drops": [int((~r.keep).sum()) for r in (r0, r1)],
+             "max_abs_err": err, "max_abs_y": scale,
+             "rel": err / scale, "bound_rel": MOE_PERM_REL,
+             "aux": [float(aux0), float(aux1)]}})
+    require(err <= MOE_PERM_REL * scale, f"the renamed layer differs: max "
+            f"abs {err} > {MOE_PERM_REL} x {scale}")
+    return launches
+
+
+def phase_lm_attn(arch: str, dev: str = "cuda"):
+    """Attention serving at full width and depth (module docstring, phases
+    9–11): qwen2-moe-a2.7b (``lm.moe``, then ``moe_dfep`` on its routing
+    before it is freed) or qwen3-4b (``lm.dense``). Returns the moe_dfep
+    path's launches (None for a dense model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import serve_step as SS
+
+    cfg = get_config(arch)
+    name = "lm.moe" if cfg.moe is not None else "lm.dense"
+    layers, s_max = cfg.n_layers, LM_PROMPT + LM_NEW
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, t_init = wall(lambda: lm.init_params(cfg, gen, dev))
+    leaves = _leaves(params)
+    h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+    log({"phase": f"{name}.init", "arch": cfg.name, "n_layers": layers,
+         "d_model": cfg.d_model, "heads": h, "kv_heads": kv,
+         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+         "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+         "moe": None if cfg.moe is None else {
+             "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+             "d_ff_expert": cfg.moe.d_ff_expert,
+             "n_shared": cfg.moe.n_shared,
+             "capacity_prefill": L.moe_capacity(cfg, LM_BATCH * LM_PROMPT),
+             "capacity_decode": L.moe_capacity(cfg, LM_BATCH)},
+         "vocab_pad": lm.vocab_pad(cfg), "params": sum(
+             t.numel() for t in leaves), "param_count": cfg.param_count(),
+         "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+         "wall_s": t_init, "peak_mib": peak_mib()})
+
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+
+    def prefill():
+        with L.record_routing() as routes:
+            out = lm.forward_lm(cfg, params, prompts, collect_cache=True)
+        return out, routes
+
+    (((logits, aux, caches), routes), x0), t_first = wall(
+        lambda: _with_first_moe_input(prefill))
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    require(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, lm.vocab_pad(cfg)),
+            f"prefill logits of shape {tuple(logits.shape)}")
+    aux = float(aux)
+    if cfg.moe is not None:
+        require(np.isfinite(aux) and aux > 0, f"MoE aux {aux} is not "
+                "finite and positive")
+        require(len(routes) == layers, f"{len(routes)} MoE calls in a "
+                f"prefill of {layers} layers")
+    t_warm = wall(lambda: SS.prefill(cfg, params, prompts))[1]
+    drops_prefill, seq_drop = _dropped(routes, LM_BATCH)
+
+    grown = SS.grow_caches(cfg, caches, LM_BATCH, s_max)
+    tok = SS.greedy_token(logits[:, -1:], cfg.vocab)
+
+    def decode_run():
+        c, t, lg = grown, tok, None
+        for n in range(LM_PROMPT, LM_PROMPT + LM_NEW - 1):
+            lg, c = SS.decode(cfg, params, t, c, n)
+            t = SS.greedy_token(lg[:, -1:], cfg.vocab)
+        return lg
+
+    with L.record_routing() as dec_routes:
+        last, t_dec_first = wall(decode_run)
+    require(bool(torch.isfinite(last).all()), "decode logits not finite")
+    t_dec = wall(decode_run)[1]
+    log({"phase": f"{name}.prefill_decode", "batch": LM_BATCH,
+         "prompt_len": LM_PROMPT, "prefill_first_s": t_first,
+         "prefill_warm_s": t_warm,
+         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_warm,
+         "aux": aux, "drops_per_layer": drops_prefill,
+         "drops": sum(drops_prefill), "sequences_dropped": seq_drop.tolist(),
+         "decode_steps": LM_NEW - 1,
+         "decode_drops": sum(_dropped(dec_routes, LM_BATCH)[0]),
+         "decode_ms_per_step_first": 1e3 * t_dec_first / (LM_NEW - 1),
+         "decode_ms_per_step": 1e3 * t_dec / (LM_NEW - 1),
+         "decode_tokens_per_s": LM_BATCH * (LM_NEW - 1) / t_dec,
+         "peak_mib": peak_mib()})
+
+    # the main path: the counters from 0, one generate, read just after
+    engine = SS.Engine(cfg, params, s_max=s_max)
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts()
+    with L.record_routing() as gen_routes:
+        out, t_gen = wall(lambda: engine.generate(prompts, LM_NEW))
+    launches = _delta(before, _launch_counts())
+    gen_peak = peak_mib()
+    require(tuple(out.shape) == (LM_BATCH, LM_NEW)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "generate's tokens are not [B, n_new] ids of the vocabulary")
+    require(len(gen_routes) == (layers * LM_NEW if cfg.moe else 0),
+            f"generate made {len(gen_routes)} MoE calls")
+
+    # decode for token s against a prefill of s + 1 tokens where no token
+    # was dropped: on the prompts' sequences that neither prefill dropped a
+    # token of, and, for the MoE model, on LM_DROPFREE prompts, too few
+    # tokens for any expert to overflow
+    checks = {"prompts": _decode_vs_prefill(cfg, params, prompts)}
+    if cfg.moe is not None:
+        short = torch.randint(0, cfg.vocab, LM_DROPFREE, generator=gen,
+                              device=dev)
+        checks["drop_free"] = _decode_vs_prefill(cfg, params, short)
+        require(checks["drop_free"]["drops"] == [0, 0],
+                f"the drop-free prompts dropped: {checks['drop_free']}")
+    bound = bf16_rel(layers)
+    log({"phase": f"{name}.generate", "new_tokens": LM_NEW, "wall_s": t_gen,
+         "tokens_per_s": LM_BATCH * LM_NEW / t_gen, "launches": launches,
+         "drops": sum(_dropped(gen_routes, LM_BATCH)[0]),
+         "peak_mib": gen_peak, "first_token_equals_prefill_argmax":
+             torch.equal(out[:, :1], tok), "decode_vs_prefill": checks,
+         "bound_rel": bound})
+    applied = [c for c in checks.values() if "rel" in c]
+    require(bool(applied), "no sequence free of drops: nothing held decode "
+            "against a prefill of one more token")
+    for c in applied:
+        rel = c["rel"]
+        require(rel["right"] <= bound, f"decode vs prefill of s + 1 tokens "
+                f"({c['prompts']}): max rel {rel['right']} > {bound}")
+        require(rel["kv_zeroed"] > bound, f"a zeroed KV cache passes the "
+                f"decode-vs-prefill bound ({c['prompts']}): {rel}")
+
+    log({"phase": f"{name}.profile", "prefill": _device_profile(
+        lambda: lm.forward_lm(cfg, params, prompts, collect_cache=True)),
+         "decode": _device_profile(
+             lambda: SS.decode(cfg, params, tok, grown, LM_PROMPT))})
+    log({"phase": f"{name}.sdpa_yardstick", **_sdpa_yardstick(cfg, gen)})
+    dfep_launches = None
+    if cfg.moe is not None:
+        dfep_launches = phase_moe_dfep(cfg, params, routes[0], x0)
+    log({"phase": f"{name}.peak", "peak_mib": peak_mib()})
+    del params, leaves, engine, logits, caches, grown, last
+    del routes, gen_routes, dec_routes
+    torch.cuda.empty_cache()
+    return dfep_launches
 
 
 def _patched_like(plan, gen, arrivals: int = 32):
@@ -3028,7 +3432,7 @@ def _masked_update_block(Kn, block, gen, times) -> dict:
 
 def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                   etsch_launches, sssp_state, lm_launches, lm_inputs,
-                  serve_launches, stream, dist_launches):
+                  serve_launches, stream, dist_launches, moe_dfep_launches):
     from repro_torch.engine import kernels as Kn
     from repro_torch.engine.plan import shard_plan
 
@@ -3262,6 +3666,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "launches": launches["lane_cumsum"], "max_abs_err": lc["max_abs_err"],
          "stream_launches": stream_launches["lane_cumsum"],
          "dist_launches": dist("lane_cumsum"),
+         "moe_dfep_launches": moe_dfep_launches["lane_cumsum"],
          "reauction": [{k: r[k] for k in (
              "batch", "hops", "rounds", "ms_per_round", "lane_cumsum",
              "active_edges", "moved_edges", "patched")}
@@ -3426,14 +3831,17 @@ def main() -> int:
                                                   sssp_state)
     dist_launches = phase_dist(g, owner, main_results)
     lm_launches, lm_inputs = phase_lm()
+    moe_dfep_launches = phase_lm_attn(LM_MOE_ARCH)
+    phase_lm_attn(LM_DENSE_ARCH)
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
                                 lm_launches, lm_inputs, serve["launches"],
-                                stream, dist_launches)
+                                stream, dist_launches, moe_dfep_launches)
     del lm_inputs
     phase_cpu_equal()
     _dist_cpu_equal()
-    _lm_cpu_equal()
+    for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH):
+        _lm_cpu_equal(arch)
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(json.dumps({"ok": True, "device": {

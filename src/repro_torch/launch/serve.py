@@ -4,10 +4,12 @@ engine, one line per request.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --smoke --device cpu --batch 4 --prompt-len 16 --n-new 8
 
-Runs on the card unless ``--device cpu``. One device: no ``--mesh``
-(multi-device is ROADMAP queue 1 item 12), and no ``--perf`` (the JAX
-launcher's tuned settings are settings of its XLA scan and dry-run specs,
-which this path does not have).
+``--arch`` takes the ported configurations: falcon-mamba-7b (ssm),
+qwen3-0.6b, qwen2-1.5b, granite-3-2b, qwen3-4b (dense) and qwen2-moe-a2.7b
+(moe); ``--smoke`` picks the reduced config. Runs on the card unless
+``--device cpu``. One device: no ``--mesh``, and no ``--perf`` (the JAX
+launcher's tuned settings are settings of its XLA scan, flash VJP and
+dry-run specs, which this path does not have).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from ..serve.serve_step import Engine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--arch", default="falcon-mamba-7b",
+                    help="a ported configuration id (see the docstring)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")

@@ -1,2 +1,3 @@
-"""Language models of the port (the ``ssm`` family: falcon-mamba)."""
+"""Language models of the port: the ``ssm`` (falcon-mamba), ``dense`` and
+``moe`` families."""
 from . import layers, lm, ssm  # noqa: F401

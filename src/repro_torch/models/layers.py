@@ -1,13 +1,22 @@
-"""Building blocks shared by the port's models (the counterpart of
-``repro/models/layers.py``, so far only what the Mamba path uses).
+"""Building blocks of the port's models (the counterpart of
+``repro/models/layers.py``): RMSNorm, RoPE, GQA attention with the flash
+scan and decode attention, the SwiGLU MLP and the capacity-bounded MoE.
+MLA is not ported.
 
 Parameters are stored float32 and cast to bfloat16 at each use; compute
 runs in bfloat16 with float32 where the reference computes in float32
-(the norm, the scan).
+(the norm, RoPE, attention's softmax and products, the router, the MoE
+combine). The port has no tensor-parallel mesh: heads and experts are
+padded as at tp = 1, and every expert is local.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+from typing import Any, NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -42,3 +51,380 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     rounds once, which often differs from it by one bfloat16 ulp."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return x * (one / (one + torch.exp(-x)))
+
+
+def pad_heads(h: int, kv: int, tp: int = 1) -> tuple[int, int]:
+    """Pad (q-heads, kv-heads) so q-heads shard over ``tp`` and group
+    evenly. The port has no tensor-parallel mesh and calls it at tp = 1,
+    where it keeps (h, kv) unless kv ≥ h, which gives (h, h)."""
+    h_pad = pad_to(h, tp)
+    if kv >= h_pad:
+        return h_pad, h_pad
+    kv_pad = kv
+    while h_pad % kv_pad != 0:
+        kv_pad += 1
+    return h_pad, kv_pad
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x [..., S, dh] (dh even), positions [S] or broadcastable. The split
+    halves rotate together (not interleaved pairs), in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [dh/2]
+    ang = positions[..., :, None].float() * freqs             # [S, dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Shape of each attention parameter (``wq`` [d, h, dh], ``wo``
+    [h, dh, d]; ``bq/bk/bv`` with ``qkv_bias``, ``q_norm/k_norm`` with
+    ``qk_norm``)."""
+    h, kv = pad_heads(cfg.n_heads, cfg.n_kv)
+    dh, d = cfg.head_dim, cfg.d_model
+    out = {"wq": (d, h, dh), "wk": (d, kv, dh), "wv": (d, kv, dh),
+           "wo": (h, dh, d)}
+    if cfg.qkv_bias:
+        out.update(bq=(h, dh), bk=(kv, dh), bv=(kv, dh))
+    if cfg.qk_norm:
+        out.update(q_norm=(dh,), k_norm=(dh,))
+    return out
+
+
+def _stacked(generator, shapes: dict, repeats: int, device, scales: dict
+             ) -> dict[str, torch.Tensor]:
+    """Parameters stacked [R, ...] by name: normal · ``scales[name]``
+    (0.02 when absent) for matrices, zeros for biases (``b*``), ones for
+    norms (``*norm``)."""
+    out = {}
+    for name, shape in shapes.items():
+        shape = (repeats,) + shape
+        if name.endswith("norm"):
+            out[name] = torch.ones(shape, dtype=PARAM_DTYPE, device=device)
+        elif name in ("bq", "bk", "bv"):
+            out[name] = torch.zeros(shape, dtype=PARAM_DTYPE, device=device)
+        else:
+            out[name] = _init(generator, shape, scales.get(name), device)
+    return out
+
+
+def _out_scale(cfg) -> float:
+    return 0.02 / math.sqrt(2 * cfg.n_layers)
+
+
+def init_attention(cfg, generator: torch.Generator, repeats: int,
+                   device=None) -> dict[str, torch.Tensor]:
+    """``repeats`` attention layers' parameters, each stacked [R, ...], with
+    the reference's distributions: normal·0.02, ``wo`` ·0.02/√(2·n_layers),
+    zero biases, unit norms."""
+    return _stacked(generator, attention_shapes(cfg), repeats, device,
+                    {"wo": _out_scale(cfg)})
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, q_offset=0, block: int = 1024
+                    ) -> torch.Tensor:
+    """Online-softmax attention in float32. q [B, H, Sq, dh]; k/v
+    [B, KV, Sk, dh]; returns [B, H, Sq, dv] in q's dtype. Scans KV blocks
+    (``n_blk = max(Sk // block, 1)`` of ``Sk // n_blk`` keys) carrying the
+    running (max, sum, acc), in the reference's order, so no [Sq, Sk]
+    score matrix is materialised."""
+    b, hq, sq, dh = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // kvh
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    qf = (q.float() * scale).reshape(b, kvh, g, sq, dh)
+
+    n_blk = max(sk // block, 1)
+    block = sk // n_blk
+    kb = k.float().reshape(b, kvh, n_blk, block, dh)
+    vb = v.float().reshape(b, kvh, n_blk, block, dv)
+    q_pos = q_offset + torch.arange(sq, device=dev)
+
+    m = torch.full((b, kvh, g, sq), float("-inf"), device=dev)
+    l = torch.zeros((b, kvh, g, sq), device=dev)
+    acc = torch.zeros((b, kvh, g, sq, dv), device=dev)
+    for i in range(n_blk):
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb[:, :, i])
+        if causal:
+            k_pos = i * block + torch.arange(block, device=dev)
+            mask = q_pos[:, None] >= k_pos[None, :]              # [Sq, blk]
+            s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqc,bkcd->bkgqd", p, vb[:, :, i])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length) -> torch.Tensor:
+    """Single-token attention against a cache. q [B, H, dh]; k_cache /
+    v_cache [B, S, KV, dh]; cache positions at or past ``length`` are
+    masked to -inf before a float32 softmax. Returns [B, H, dh] in q's
+    dtype."""
+    b, hq, dh = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = hq // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qf = (q.float() * scale).reshape(b, kvh, g, dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    valid = torch.arange(s, device=q.device)[None, None, None, :] < length
+    logits = torch.where(valid, logits, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p / l.clamp(min=1e-30),
+                       v_cache.float())
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
+def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+              causal: bool = True, cache=None, cache_len=None):
+    """GQA attention with RoPE, prefill or decode.
+
+    prefill: x [B, S, D] -> (out [B, S, D], (k, v) each [B, S, KV, dh]);
+    decode:  x [B, 1, D] and ``cache`` (k, v) [B, S_max, KV, dh] -> (out,
+    new caches with this step's k/v written at ``cache_len``; the caches
+    passed in are left as they were).
+    """
+    b, sq, d = x.shape
+    xc = x.to(COMPUTE_DTYPE)
+    q = torch.einsum("bsd,dhk->bhsk", xc, p["wq"].to(COMPUTE_DTYPE))
+    k = torch.einsum("bsd,dhk->bhsk", xc, p["wk"].to(COMPUTE_DTYPE))
+    v = torch.einsum("bsd,dhk->bhsk", xc, p["wv"].to(COMPUTE_DTYPE))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(COMPUTE_DTYPE)[None, :, None, :]
+        k = k + p["bk"].to(COMPUTE_DTYPE)[None, :, None, :]
+        v = v + p["bv"].to(COMPUTE_DTYPE)[None, :, None, :]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        # write this step's k/v at cache_len (clamped to fit, as
+        # ``dynamic_update_slice`` clamps), into copies of the caches
+        k_cache, v_cache = (c.clone() for c in cache)
+        start = min(max(int(cache_len), 0), k_cache.shape[1] - sq)
+        k_cache[:, start:start + sq] = k.transpose(1, 2).to(k_cache.dtype)
+        v_cache[:, start:start + sq] = v.transpose(1, 2).to(v_cache.dtype)
+        out = decode_attention(q[:, :, 0, :], k_cache, v_cache,
+                               cache_len + 1)[:, :, None, :]  # [B,H,1,dh]
+        new_cache = (k_cache, v_cache)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
+        new_cache = (k.transpose(1, 2), v.transpose(1, 2))
+
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(COMPUTE_DTYPE))
+    return y.to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple[int, ...]]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
+def init_mlp(cfg, generator: torch.Generator, repeats: int, device=None,
+             d_ff: int | None = None) -> dict[str, torch.Tensor]:
+    """SwiGLU weights stacked [R, ...]: normal·0.02, ``w_down``
+    ·0.02/√(2·n_layers)."""
+    return _stacked(generator, mlp_shapes(cfg, d_ff), repeats, device,
+                    {"w_down": _out_scale(cfg)})
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    xc = x.to(COMPUTE_DTYPE)
+    g = silu(xc @ p["w_gate"].to(COMPUTE_DTYPE))
+    u = xc @ p["w_up"].to(COMPUTE_DTYPE)
+    return ((g * u) @ p["w_down"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (one device: every expert local)
+# ---------------------------------------------------------------------------
+
+def moe_shapes(cfg) -> dict[str, Any]:
+    """Router [d, E], stacked experts ``w_gate``/``w_up`` [E, d, fe] and
+    ``w_down`` [E, fe, d], and the shared expert's MLP (width
+    n_shared · fe) when the config has one."""
+    mo, d = cfg.moe, cfg.d_model
+    e = mo.n_experts                  # padded to a multiple of tp = 1
+    fe = mo.d_ff_expert or cfg.d_ff
+    out: dict[str, Any] = {"router": (d, e), "w_gate": (e, d, fe),
+                           "w_up": (e, d, fe), "w_down": (e, fe, d)}
+    if mo.n_shared:
+        out["shared"] = mlp_shapes(cfg, mo.n_shared * fe)
+    return out
+
+
+def init_moe(cfg, generator: torch.Generator, repeats: int, device=None
+             ) -> dict[str, Any]:
+    """MoE weights stacked [R, ...]: the router normal·0.006, experts
+    normal·0.02 (``w_down`` ·0.02/√(2·n_layers)), and the shared expert."""
+    shapes = moe_shapes(cfg)
+    shared = shapes.pop("shared", None)
+    out: dict[str, Any] = _stacked(generator, shapes, repeats, device,
+                                   {"router": 0.006,
+                                    "w_down": _out_scale(cfg)})
+    if shared is not None:
+        out["shared"] = init_mlp(cfg, generator, repeats, device,
+                                 d_ff=shared["w_down"][0])
+    return out
+
+
+class Routing(NamedTuple):
+    """One MoE call's routing, in token order: the experts each token
+    chose [T, k] (int64, by falling probability, the lower index first
+    among equal ones), their normalised gates [T, k] float32, and ``keep``
+    [T, k] (False where the token's slot at that expert overflowed the
+    capacity: the reference's ``keep == False``, a dropped contribution)."""
+    expert_idx: torch.Tensor
+    gates: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+_ROUTING_SINKS: list[list[Routing]] = []
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Collect the ``Routing`` of every ``moe`` call made inside the block,
+    in call order (one a layer and forward). Yields the list they are
+    appended to; no host read happens until the caller reads it."""
+    sink: list[Routing] = []
+    _ROUTING_SINKS.append(sink)
+    try:
+        yield sink
+    finally:   # by identity: two sinks holding the same records are equal
+        del _ROUTING_SINKS[next(i for i, s in enumerate(_ROUTING_SINKS)
+                                if s is sink)]
+
+
+def top_k_lower_first(values: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equal values (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none): a stable descending sort."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, w_down: torch.Tensor, *, n_real: int,
+                top_k: int, capacity: int, norm_topk: bool):
+    """Tokens x [T, D] through every expert: route, place each kept
+    (token, expert) pair at its rank among the expert's tokens in flat
+    token order, run the experts on their [capacity, D] buffers, and
+    combine. Returns (y [T, D] float32, aux scalar)."""
+    t, d = x.shape
+    e_pad = router.shape[1]
+    dev = x.device
+    xc = x.to(COMPUTE_DTYPE)
+
+    logits = (xc @ router.to(COMPUTE_DTYPE)).float()
+    logits = torch.where(torch.arange(e_pad, device=dev)[None, :] < n_real,
+                         logits, float("-inf"))
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    gates, eidx = top_k_lower_first(probs, top_k)                # [T, k]
+    if norm_topk:
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    # slots: a stable sort by expert keeps flat token order within each
+    fe_idx = eidx.reshape(-1)
+    order = torch.argsort(fe_idx, stable=True)
+    se = fe_idx[order]
+    stok = order // top_k
+    starts = torch.searchsorted(se, torch.arange(e_pad, device=dev))
+    pos = torch.arange(t * top_k, device=dev) - starts[se]
+    keep = pos < capacity
+    b_e = torch.where(keep, se, 0)
+    b_p = torch.where(keep, pos, capacity)                       # overflow
+    buf = torch.zeros((e_pad * (capacity + 1), d), dtype=COMPUTE_DTYPE,
+                      device=dev)
+    buf.index_add_(0, b_e * (capacity + 1) + b_p,
+                   xc[stok] * keep[:, None].to(COMPUTE_DTYPE))
+    buf = buf.view(e_pad, capacity + 1, d)[:, :capacity]
+
+    g = silu(torch.bmm(buf, w_gate.to(COMPUTE_DTYPE)))
+    u = torch.bmm(buf, w_up.to(COMPUTE_DTYPE))
+    o = torch.bmm(g * u, w_down.to(COMPUTE_DTYPE))               # [E,C,D]
+
+    o_pad = torch.cat([o, o.new_zeros((e_pad, 1, d))], dim=1)
+    contrib = o_pad[b_e, b_p] * (gates.reshape(-1)[order] * keep
+                                 )[:, None].to(o.dtype)
+    # back to token order, each token's k terms by ascending expert (the
+    # order the reference's scatter-add meets them in), summed in float32
+    # one after another: deterministic on every device
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * top_k, device=dev)
+    by_expert = torch.argsort(eidx, dim=-1)
+    terms = contrib[rank.view(t, top_k).gather(1, by_expert)]    # [T,k,D]
+    y = terms[:, 0].float()
+    for j in range(1, top_k):
+        y = y + terms[:, j].float()
+
+    if _ROUTING_SINKS:
+        keep_tok = torch.empty_like(keep)
+        keep_tok[order] = keep
+        r = Routing(eidx, gates, keep_tok.view(t, top_k), capacity)
+        for sink in _ROUTING_SINKS:
+            sink.append(r)
+
+    # Switch-style load-balance aux loss over the real experts
+    me = probs[:, :n_real].mean(dim=0)
+    onehot = F.one_hot(eidx, e_pad).float()[..., :n_real]
+    ce = onehot.sum(dim=1).mean(dim=0)
+    aux = n_real * (me * ce).sum()
+    return y, aux
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots an expert has for a call of ``n_tokens`` tokens."""
+    mo = cfg.moe
+    return max(8, int(mo.capacity_factor * n_tokens * mo.top_k
+                      / mo.n_experts))
+
+
+def moe(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (y [B, S, D] in x's dtype, aux scalar float32): the
+    routed experts, capacity-bounded over the call's B·S tokens, plus the
+    shared expert."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    y, aux = _moe_worker(x.reshape(b * s, d), p["router"], p["w_gate"],
+                         p["w_up"], p["w_down"], n_real=mo.n_experts,
+                         top_k=mo.top_k, capacity=moe_capacity(cfg, b * s),
+                         norm_topk=True)
+    y = y.reshape(b, s, d).to(x.dtype)
+    if mo.n_shared:
+        y = y + mlp(p["shared"], x)
+    return y, aux

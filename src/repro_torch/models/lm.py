@@ -1,14 +1,17 @@
 """Decoder-only language model over the port's layers (the counterpart of
-``repro/models/lm.py``; the ``ssm`` family so far).
+``repro/models/lm.py``; the ``ssm``, ``dense`` and ``moe`` families).
 
 Layout of ``params`` (the reference's, so that carrying weights across is
 a copy, never a transpose):
   embed      [V_pad, D]
-  blocks     {"l0": ..., "l{P-1}": ...}  — each leaf stacked [R, ...]
+  blocks     {"l0": ..., "l{P-1}": ...}  — each leaf stacked [R, ...]:
+             norm1, mixer (attention or SSM), and norm2 + ffn (MLP or MoE)
+             where the layer has an FFN
   final_norm [D];  lm_head [V_pad, D] (absent if tied)
 
 Caches (decode), per pattern position, stacked [R, ...]:
-  ssm -> (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)
+  attn -> (k [R, B, S, KV, dh] bf16, v [R, B, S, KV, dh] bf16)
+  ssm  -> (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)
 
 Layers run as a Python loop over the R repeats: the port has no ``scan``
 to lower, and each layer's selective scan is one kernel launch.
@@ -26,33 +29,70 @@ from . import layers as L
 from . import ssm as S
 
 #: Families ``forward_lm``, ``decode_step`` and ``init_params`` run.
-PORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("ssm", "dense", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (see ROADMAP.md, queue 1 item 15); ported: "
+            f"yet (see ROADMAP.md, queue 1 item 10); ported: "
             f"{', '.join(PORTED_FAMILIES)}")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported to repro_torch yet "
+            f"(see ROADMAP.md, queue 1 item 10)")
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
     return L.pad_to(cfg.vocab, 128)
 
 
+def _layer_shapes(cfg: ModelConfig, kind: str, pos: int) -> dict[str, Any]:
+    r, d = cfg.block_repeats, cfg.d_model
+
+    def stack(shapes):
+        return {k: stack(v) if isinstance(v, dict) else (r,) + v
+                for k, v in shapes.items()}
+
+    out: dict[str, Any] = {"norm1": (r, d)}
+    out["mixer"] = stack(S.param_shapes(cfg) if kind == "ssm"
+                         else L.attention_shapes(cfg))
+    fk = cfg.ffn_kind(pos)
+    if fk != "none":
+        out["norm2"] = (r, d)
+        out["ffn"] = stack(L.moe_shapes(cfg) if fk == "moe"
+                           else L.mlp_shapes(cfg))
+    return out
+
+
 def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The shape of every parameter, in the layout of ``params``."""
     _require_ported(cfg)
-    r, d, vp = cfg.block_repeats, cfg.d_model, vocab_pad(cfg)
-    blocks = {}
-    for i in range(len(cfg.layer_pattern)):
-        mixer = {k: (r,) + v for k, v in S.param_shapes(cfg).items()}
-        blocks[f"l{i}"] = {"norm1": (r, d), "mixer": mixer}
+    d, vp = cfg.d_model, vocab_pad(cfg)
+    blocks = {f"l{i}": _layer_shapes(cfg, kind, i)
+              for i, kind in enumerate(cfg.layer_pattern)}
     shapes = {"embed": (vp, d), "blocks": blocks, "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (vp, d)
     return shapes
+
+
+def _init_layer(cfg: ModelConfig, kind: str, pos: int,
+                generator: torch.Generator, dev) -> dict[str, Any]:
+    r, d = cfg.block_repeats, cfg.d_model
+    p: dict[str, Any] = {
+        "norm1": torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)}
+    if kind == "ssm":
+        p["mixer"] = S.init_ssm(cfg, generator, r, dev)
+    else:
+        p["mixer"] = L.init_attention(cfg, generator, r, dev)
+    fk = cfg.ffn_kind(pos)
+    if fk != "none":
+        p["norm2"] = torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)
+        p["ffn"] = (L.init_moe(cfg, generator, r, dev) if fk == "moe"
+                    else L.init_mlp(cfg, generator, r, dev))
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -64,17 +104,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     reference's own values across."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    r = cfg.block_repeats
     params: dict[str, Any] = {
         "embed": L._init(generator, (vocab_pad(cfg), cfg.d_model),
                          device=dev)}
-    blocks = {}
-    for i in range(len(cfg.layer_pattern)):
-        blocks[f"l{i}"] = {
-            "norm1": torch.ones((r, cfg.d_model), dtype=L.PARAM_DTYPE,
-                                device=dev),
-            "mixer": S.init_ssm(cfg, generator, r, dev)}
-    params["blocks"] = blocks
+    params["blocks"] = {f"l{i}": _init_layer(cfg, kind, i, generator, dev)
+                        for i, kind in enumerate(cfg.layer_pattern)}
     params["final_norm"] = torch.ones(cfg.d_model, dtype=L.PARAM_DTYPE,
                                       device=dev)
     if not cfg.tie_embeddings:
@@ -121,32 +155,53 @@ def params_to_numpy(params) -> dict[str, Any]:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, cache=None):
-    """Pre-norm residual SSM layer. Returns (x, new_cache)."""
+def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
+                 x: torch.Tensor, *, positions, cache=None, cache_len=None):
+    """Pre-norm residual layer: the mixer, then the FFN where the layer
+    has one. Returns (x, new_cache, aux)."""
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
-    y, new_cache = S.ssm_block(cfg, p["mixer"], h, state=cache)
-    return x + y, new_cache
+    if kind == "ssm":
+        y, new_cache = S.ssm_block(cfg, p["mixer"], h, state=cache)
+    else:
+        y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions,
+                                   cache=cache, cache_len=cache_len)
+    x = x + y
+    aux = None
+    if "ffn" in p:
+        h2 = L.rms_norm(x, p["norm2"], cfg.rms_eps)
+        if cfg.moe_at(pos):
+            y2, aux = L.moe(cfg, p["ffn"], h2)
+        else:
+            y2 = L.mlp(p["ffn"], h2)
+        x = x + y2
+    return x, new_cache, aux
 
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
-                caches=None, collect_cache: bool = False):
-    """The R repeated blocks in order. Returns (x, new caches | None), the
-    caches stacked [R, ...] as the reference's scan stacks them."""
+                positions, caches=None, cache_len=None,
+                collect_cache: bool = False):
+    """The R repeated blocks in order. Returns (x, new caches | None, aux:
+    the MoE losses summed in layer order, float32), the caches stacked
+    [R, ...] as the reference's scan stacks them."""
     pattern = cfg.layer_pattern
     keep = caches is not None or collect_cache
     per_layer: dict[str, list] = {f"l{i}": [] for i in range(len(pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.block_repeats):
-        for i in range(len(pattern)):
+        for i, kind in enumerate(pattern):
             name = f"l{i}"
             p = _index(blocks[name], r)
             c = None if caches is None else tuple(t[r] for t in caches[name])
-            x, nc = _apply_layer(cfg, p, x, c)
+            x, nc, a = _apply_layer(cfg, kind, i, p, x, positions=positions,
+                                    cache=c, cache_len=cache_len)
+            if a is not None:
+                aux = aux + a
             if keep:
                 per_layer[name].append(nc)
     if not keep:
-        return x, None
+        return x, None, aux
     return x, {name: tuple(torch.stack(parts) for parts in zip(*layer))
-               for name, layer in per_layer.items()}
+               for name, layer in per_layer.items()}, aux
 
 
 def _index(tree, r: int):
@@ -169,23 +224,31 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                collect_cache: bool = False):
     """Full-sequence forward (prefill). tokens [B, S] int.
-    Returns (logits [B, S, V_pad] bf16, aux (0.0: no MoE loss), caches if
-    ``collect_cache`` else None)."""
+    Returns (logits [B, S, V_pad] bf16, aux (the MoE load-balance losses
+    summed over layers; 0.0 without MoE), caches if ``collect_cache`` else
+    None)."""
     _require_ported(cfg)
-    x, caches = _run_blocks(cfg, params["blocks"], _embed(params, tokens),
-                            collect_cache=collect_cache)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _embed(params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    x, caches, aux = _run_blocks(cfg, params["blocks"], x,
+                                 positions=positions,
+                                 collect_cache=collect_cache)
     return _logits(cfg, params, x), aux, caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
                 cache_len: int):
     """One decode step. token [B, 1] int; ``cache_len`` is the current
-    prefix length (the SSM state does not read it). Returns
-    (logits [B, 1, V_pad], new caches); ``caches`` is left as it was."""
+    prefix length (where attention writes this step's k/v; the SSM state
+    does not read it). Returns (logits [B, 1, V_pad], new caches);
+    ``caches`` is left as it was."""
     _require_ported(cfg)
-    x, new_caches = _run_blocks(cfg, params["blocks"], _embed(params, token),
-                                caches=caches)
+    x = _embed(params, token)
+    positions = torch.full((1,), int(cache_len), dtype=torch.int32,
+                           device=x.device)
+    x, new_caches, _ = _run_blocks(cfg, params["blocks"], x,
+                                   positions=positions, caches=caches,
+                                   cache_len=int(cache_len))
     return _logits(cfg, params, x), new_caches
 
 
@@ -194,16 +257,23 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
-    """{"l{i}": ((shape, dtype), ...)} of the decode caches; for each
-    tensor also the axis of its sequence (None if it has none), so that a
-    server grows by kind, never by matching shapes. SSM state has no
+    """{"l{i}": ((shape, dtype, seq_axis), ...)} of the decode caches: for
+    each tensor also the axis of its sequence (None if it has none), so
+    that a server grows by kind, never by matching shapes. Attention:
+    (k, v) [R, B, S, KV, dh] bf16, sequence on axis 2; SSM state has no
     sequence axis: (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)."""
     _require_ported(cfg)
     r = cfg.block_repeats
-    s_cfg, d_in, _ = S.ssm_dims(cfg)
     out = {}
-    for i in range(len(cfg.layer_pattern)):
-        out[f"l{i}"] = (
-            ((r, batch, s_cfg.d_conv - 1, d_in), torch.bfloat16, None),
-            ((r, batch, d_in, s_cfg.d_state), torch.float32, None))
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind == "ssm":
+            s_cfg, d_in, _ = S.ssm_dims(cfg)
+            out[f"l{i}"] = (
+                ((r, batch, s_cfg.d_conv - 1, d_in), torch.bfloat16, None),
+                ((r, batch, d_in, s_cfg.d_state), torch.float32, None))
+        else:
+            _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+            shape = (r, batch, s_max, kv, cfg.head_dim)
+            out[f"l{i}"] = ((shape, torch.bfloat16, 2),
+                            (shape, torch.bfloat16, 2))
     return out

@@ -325,25 +325,46 @@ def test_param_count_counts_the_matrices_of_init():
 
 
 @pytest.mark.parametrize("arch", [a for a in TC.ARCH_IDS
-                                  if a != "falcon-mamba-7b"])
+                                  if TC.ARCH_IDS[a] not in TC.PORTED])
 def test_get_config_of_unported_architecture_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TC.get_config(arch, smoke=True)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b", "granite-3-2b",
+                                  "qwen3-4b", "qwen2-moe-a2.7b"])
+def test_get_config_of_ported_architecture_matches_reference(arch):
+    """The port's CONFIG and SMOKE equal the reference's field for field,
+    and so do their parameter counts and layer patterns."""
+    import dataclasses
+    for smoke in (False, True):
+        ref, port = ref_config(arch, smoke=smoke), TC.get_config(arch, smoke)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert port.layer_pattern == ref.layer_pattern
+        assert port.block_repeats == ref.block_repeats
 
 
 def test_get_config_and_unported_family():
     assert TC.get_config("falcon_mamba_7b").name == "falcon-mamba-7b"
     with pytest.raises(KeyError):
         TC.get_config("no-such-model")
-    dense = ref_config("qwen3-0.6b", smoke=True)
-    port_dense = TC.ModelConfig(
-        name=dense.name, family=dense.family, n_layers=dense.n_layers,
-        d_model=dense.d_model, n_heads=dense.n_heads, n_kv=dense.n_kv,
-        d_ff=dense.d_ff, vocab=dense.vocab)
+    hybrid = ref_config("jamba-v0.1-52b", smoke=True)
+    port_hybrid = TC.ModelConfig(
+        name=hybrid.name, family=hybrid.family, n_layers=hybrid.n_layers,
+        d_model=hybrid.d_model, n_heads=hybrid.n_heads, n_kv=hybrid.n_kv,
+        d_ff=hybrid.d_ff, vocab=hybrid.vocab,
+        attn_period=hybrid.attn_period)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.init_params(port_dense, torch.Generator(), CPU)
-    with pytest.raises(NotImplementedError, match="dense"):
-        TL.forward_lm(port_dense, {}, torch.zeros((1, 2), dtype=torch.int64))
+        TL.init_params(port_hybrid, torch.Generator(), CPU)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        TL.forward_lm(port_hybrid, {}, torch.zeros((1, 2), dtype=torch.int64))
+    # an MoE config with MLA attention (deepseek-v2) is not ported either
+    mla = TC.ModelConfig(name="mla", family="moe", n_layers=2, d_model=64,
+                         n_heads=4, n_kv=4, d_ff=128, vocab=256,
+                         mla=TC.MlaConfig(kv_lora=32))
+    with pytest.raises(NotImplementedError, match="MLA"):
+        TL.param_shapes(mla)
 
 
 def test_launch_serve_prints_one_line_per_request():

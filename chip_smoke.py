@@ -49,7 +49,14 @@ non-zero with no "ok" line):
               sum; timed first and warm against the solo runs, warm);
               ``run_batched`` for bfs and wsssp at SERVE_SMALL lanes, cold
               and warm-started from a one-superstep batch with two rows
-              +inf, each lane against its solo cold or warm run; then a
+              +inf, each lane against its solo cold or warm run;
+              ``run_batched`` of gcn_layer (batched x) and kge_score
+              (batched entity and relation) at SERVE_SMALL lanes, the
+              lanes on gspmm's feature axis (F = GSPMM_LANE_WIDTH): one
+              gspmm launch for the batch's one sweep against one a lane
+              solo, each lane within SERVE_ADD_ATOL of its solo run
+              (relative to its largest |value| above 1), timed first and
+              warm against the solo runs, warm; then a
               ``GraphServer`` on the card answering SERVE_REQUESTS seeded
               requests of SERVE_TENANTS tenants (sssp, bfs, wsssp with
               repeated sources, wcc, pagerank 20 and 30, ppr, labelprop,
@@ -209,13 +216,28 @@ non-zero with no "ok" line):
               32 heads over 8 kv heads, qk_norm, vocab 151,936), after
               qwen2-moe is freed: the same steps and checks, every
               sequence free of drops.
-12. kernels — each kernel against its plain version on the main path's plan
+12. lm.hybrid — jamba-v0.1-52b at full width (d_model 4096, 32 heads over
+              8 kv heads, d_ff 14336, 16 experts top-2 on every other
+              layer, d_inner 8192, d_state 16, vocab 65,536), its depth
+              cut to one block repeat (LM_HYBRID_LAYERS: ssm×4, attn,
+              ssm×3), after qwen3-4b is freed: the same steps and checks;
+              selective_scan must run once per SSM layer and forward in
+              ``generate``, 7 · LM_NEW times, and the first SSM layer's
+              scan arguments in a prefill are kept for the kernels phase.
+13. lm.mla  — deepseek-v2-236b at full width (d_model 5120, 128 heads,
+              MLA with kv_lora 512, q_lora 1536, rope 64, nope 128, v
+              128, 160 routed experts top-6 of width 1536 and 2 shared,
+              vocab 102,400), its depth cut to LM_MLA_LAYERS, after
+              jamba is freed: the same steps and checks (the yardstick at
+              dh 192 against dv 128).
+14. kernels — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
               bit, and its per-plan layout's build time and counts logged;
               gspmm at F = 1, 8 and 128, add/max/mean, scalar and per-feature
-              weights, add also against a second call, bit for bit;
+              weights, add also against a second call, bit for bit, and
+              at the batched GNN runs' F = GSPMM_LANE_WIDTH;
               masked_update, the glob-form update that closes the dist
               path's exchanges, scalar and at the GNN state's F=8 on the
               main plan, and at a world-DIST_BLOCK_WORLD rank's block
@@ -260,15 +282,20 @@ non-zero with no "ok" line):
               lane_cumsum's ``reauction`` both re-auctions' rounds). selective_scan is held against
               its plain loop (y and h_last within SCAN_REL) on seeded
               inputs at the prefill shape with a zero and a random h0, at
-              S = 1, and on the lm phase's captured layer inputs, and timed
-              at the prefill shape and at S = 1, each beside its bound
-              (bytes, float32 operations, and exps at the SFUs' rate).
-13. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
+              S = 1, and on the lm and lm.hybrid phases' captured layer
+              inputs, and timed at the prefill shape, at S = 1 and on
+              jamba's inputs, each beside its bound (bytes, float32
+              operations, and exps at the SFUs' rate); its row also
+              carries lm.hybrid's launches (``launches_hybrid``), and
+              gspmm's the batched GNN runs' (``serve_lanes_launches``)
+              and its times at F = GSPMM_LANE_WIDTH (``lanes``).
+15. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
-              metrics; and the falcon-mamba, qwen2-moe and qwen3-4b SMOKE
-              models with the same parameters on both: logits within
+              metrics; and the falcon-mamba, qwen2-moe, qwen3-4b, jamba
+              and deepseek-v2 SMOKE models with the same parameters on
+              both: logits within
               bf16_rel(4), and the card's greedy tokens the CPU's (up to
               bfloat16 ties);
               then two gloo ranks run sharded DFEP and the sharded
@@ -365,6 +392,13 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 512, 16
 #: The lm.moe and lm.dense phases: qwen2-moe-a2.7b and qwen3-4b at full
 #: width and depth, the lm phase's batch, prompts and new tokens.
 LM_MOE_ARCH, LM_DENSE_ARCH = "qwen2-moe-a2.7b", "qwen3-4b"
+#: The lm.hybrid and lm.mla phases: jamba-v0.1-52b and deepseek-v2-236b at
+#: full width, their depth cut (``dataclasses.replace(cfg, n_layers=...)``)
+#: to what one 80 GB card holds in float32: jamba to one block repeat (8
+#: layers, 13.30 B parameters, 49.5 GiB), deepseek-v2 to 3 layers (12.96 B,
+#: 48.3 GiB); the init's out-projection scale follows the cut n_layers.
+LM_HYBRID_ARCH, LM_HYBRID_LAYERS = "jamba-v0.1-52b", 8
+LM_MLA_ARCH, LM_MLA_LAYERS = "deepseek-v2-236b", 3
 #: The MoE model's drop-free decode check: B prompts of S tokens with
 #: B · (S + 1) no more than the capacity's floor of 8 slots an expert, so
 #: no prefill can drop a token (a token routes to an expert once).
@@ -417,6 +451,9 @@ SERVE_TRACED = 64
 LEDGER_QPS_PAIRS = 3
 SERVE_ADD_ATOL = 1e-5
 SERVE_KERNELS = ("segment_reduce", "exchange", "gspmm")
+#: gspmm's width in the serve phase's batched GNN runs: SERVE_SMALL lanes
+#: of gcn_layer's 8 input features or kge_score's 8 on its feature axis.
+GSPMM_LANE_WIDTH = SERVE_SMALL * 8
 #: Lane widths at which segment_reduce and exchange are timed: a full
 #: micro-batch of the default buckets (32) and a middle one (8).
 SERVE_WIDTHS = (8, 32)
@@ -1006,6 +1043,77 @@ def _serve_run_batched(eng, rng, n) -> dict:
     return out
 
 
+def _serve_gspmm_lanes(eng, g, rng) -> dict:
+    """run_batched of gcn_layer (batched x [SERVE_SMALL, V, 8]) and of
+    kge_score (batched entity [SERVE_SMALL, V, 8] and relation
+    [SERVE_SMALL, e_pad, 8]): the lanes ride gspmm's feature axis, so the
+    batch must launch gspmm once a sweep (one sweep: once) against one a
+    lane for the solo runs; every lane within SERVE_ADD_ATOL of its solo
+    run, relative to the largest |value| where that exceeds 1 (kge_score's
+    unnormalised hub sums: at F = GSPMM_LANE_WIDTH the kernel sums a run's
+    slots over other lane groups than at F = 8); the batch timed first and
+    warm against the solo runs, warm (host wall and, from the dispatches'
+    events, device seconds)."""
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels
+    n, e_pad = g.n_vertices, g.e_pad
+
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    deg = g.degrees()
+    cases = {
+        "gcn_layer": (E.GCN_LAYER, {"x": normal(SERVE_SMALL, n, E.GCN_F_IN)},
+                      {"weight": normal(E.GCN_F_IN, E.GCN_F_OUT),
+                       "degrees": deg}),
+        "kge_score": (E.KGE_SCORE,
+                      {"entity": normal(SERVE_SMALL, n, E.KGE_F),
+                       "relation": normal(SERVE_SMALL, e_pad, E.KGE_F)}, {})}
+    out = {}
+    for name, (prog, bkw, kw) in cases.items():
+        kernels.reset_launches()
+        r, t_first = wall(lambda: eng.run_batched(prog, bkw, **kw))
+        batched = dict(kernels.LAUNCHES)
+        pending, t_warm = wall(lambda: eng.dispatch_batched(prog, bkw, **kw))
+
+        def solo_runs():
+            return [eng.dispatch(prog, **{k: v[i] for k, v in bkw.items()},
+                                 **kw) for i in range(SERVE_SMALL)]
+        solo_runs()                       # warm the solo path
+        kernels.reset_launches()
+        solo, t_solo = wall(solo_runs)
+        solo_launches = dict(kernels.LAUNCHES)
+        solo_device_s = sum(one.device_s() for one in solo)
+        solo = [one.result() for one in solo]
+        errs, scales = [], []
+        for i, one in enumerate(solo):
+            require(r.state[i].shape == one.state.shape,
+                    f"{name}: lane {i} of shape {tuple(r.state[i].shape)}")
+            errs.append(float((r.state[i] - one.state).abs().max()))
+            scales.append(max(1.0, float(one.state.abs().max())))
+        steps = int(r.supersteps.max())
+        row = {"lanes": SERVE_SMALL, "gspmm_width": GSPMM_LANE_WIDTH,
+               "batched_first_s": t_first, "batched_warm_s": t_warm,
+               "solo_warm_s": t_solo, "solo_over_batched": t_solo / t_warm,
+               "batched_warm_device_s": pending.device_s(),
+               "solo_warm_device_s": solo_device_s,
+               "supersteps": steps, "launches_batched": batched,
+               "launches_solo": solo_launches, "max_abs_vs_solo": max(errs),
+               "max_rel_vs_solo": max(e / s for e, s in zip(errs, scales)),
+               "bound": SERVE_ADD_ATOL}
+        out[name] = row
+        log({"phase": f"serve.lanes.{name}", **row})
+        for i, (e, sc) in enumerate(zip(errs, scales)):
+            require(e <= SERVE_ADD_ATOL * sc, f"{name}: lane {i} max abs "
+                    f"{e} vs its solo run > {SERVE_ADD_ATOL} x {sc}")
+        require(batched["gspmm"] == steps,
+                f"{name}: the batch launched gspmm {batched['gspmm']} "
+                f"times in {steps} sweeps")
+        require(solo_launches["gspmm"] == SERVE_SMALL * steps,
+                f"{name}: solo gspmm launches {solo_launches['gspmm']}")
+    return out
+
+
 def _serve_requests(G, rng, n, planes, count: int) -> list:
     """A seeded stream of ``count`` requests from SERVE_TENANTS tenants,
     in a seeded order: 27/32 of them sssp, bfs and wsssp, a quarter of
@@ -1074,6 +1182,8 @@ def phase_serve(g, owner):
     ms = _serve_multi_source(E.Engine(plan),
                              rng.choice(n, SERVE_LANES, replace=False))
     rb = _serve_run_batched(E.Engine(plan), rng, n)
+    gl = _serve_gspmm_lanes(E.Engine(plan), g,
+                            np.random.default_rng(SEED + 2))
 
     dispatches = []
 
@@ -1173,7 +1283,8 @@ def phase_serve(g, owner):
         "drain_s": t_drain, "drain_qps": SERVE_DRAIN / t_drain}
     log({"phase": "serve.server", **result})
     return {"plan_cache": cache_t, "multi_source": ms, "run_batched": rb,
-            "server": result, "ledger": ledger, "launches": serve_launches}
+            "gspmm_lanes": gl, "server": result, "ledger": ledger,
+            "launches": serve_launches}
 
 
 def _serve_ledger(G, E, plan, g, reqs, first) -> dict:
@@ -2273,20 +2384,8 @@ def phase_lm(cfg=None, dev: str = "cuda"):
             f"a wrong cache passes the decode-vs-prefill bound: {rel}")
 
     # the scan's real inputs at the first and the last layer
-    captured, calls, real = {}, [0], ops.selective_scan
-
-    def capture(*args):
-        if calls[0] in (0, layers - 1):
-            captured[f"layer{calls[0]}"] = tuple(
-                None if t is None else t.clone() for t in args)
-        calls[0] += 1
-        return real(*args)
-
-    ops.selective_scan = capture
-    try:
-        SS.prefill(cfg, params, prompts)
-    finally:
-        ops.selective_scan = real
+    captured = _scan_inputs(lambda: SS.prefill(cfg, params, prompts),
+                            (0, layers - 1))
     del params, leaves, engine, logits, caches, conv, h, last, dec, full
     torch.cuda.empty_cache()
     return launches, captured
@@ -2420,18 +2519,24 @@ def _with_first_moe_input(fn):
 
 def _sdpa_yardstick(cfg, gen) -> dict:
     """The port's flash scan against ``scaled_dot_product_attention`` at
-    the prefill's attention shapes (bf16 q [B, H, S, dh], k/v [B, KV, S,
-    dh], causal): device ms of each and their largest difference. SDPA is
-    timed here only; the path never calls it."""
+    the prefill's attention shapes (bf16 q [B, H, S, dh], k [B, KV, S, dh],
+    v [B, KV, S, dv], causal; MLA: dh = nope + rope, dv = v_head_dim, KV =
+    H): device ms of each and their largest difference. SDPA is timed here
+    only; the path never calls it."""
     from repro_torch.models import layers as L
     h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
-    dh = cfg.head_dim
+    dh = dv = cfg.head_dim
+    if cfg.mla is not None:
+        h = kv = cfg.n_heads
+        dh = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+        dv = cfg.mla.v_head_dim
 
-    def draw(heads):
-        return torch.randn((LM_BATCH, heads, LM_PROMPT, dh), generator=gen,
-                           device=gen.device).to(torch.bfloat16)
+    def draw(heads, width=dh):
+        return torch.randn((LM_BATCH, heads, LM_PROMPT, width),
+                           generator=gen, device=gen.device).to(
+                               torch.bfloat16)
 
-    q, k, v = draw(h), draw(kv), draw(kv)
+    q, k, v = draw(h), draw(kv), draw(kv, dv)
     # SDPA's GQA: the kv heads repeated once, outside the timed call
     k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
 
@@ -2448,6 +2553,7 @@ def _sdpa_yardstick(cfg, gen) -> dict:
                 / b.float().abs().max())
     require(rel <= SDPA_REL, f"flash scan vs SDPA: max rel {rel}")
     return {"q_shape": list(q.shape), "kv_shape": list(k.shape),
+            "v_shape": list(v.shape),
             "flash_scan_ms": device_ms(port), "sdpa_ms": device_ms(sdpa),
             "max_rel_diff": rel, "bound_rel": SDPA_REL}
 
@@ -2524,32 +2630,77 @@ def phase_moe_dfep(cfg, params, first_route, x0) -> dict:
     return launches
 
 
-def phase_lm_attn(arch: str, dev: str = "cuda"):
-    """Attention serving at full width and depth (module docstring, phases
-    9–11): qwen2-moe-a2.7b (``lm.moe``, then ``moe_dfep`` on its routing
-    before it is freed) or qwen3-4b (``lm.dense``). Returns the moe_dfep
-    path's launches (None for a dense model)."""
+def _lm_phase_name(cfg) -> str:
+    if cfg.family == "hybrid":
+        return "lm.hybrid"
+    if cfg.mla is not None:
+        return "lm.mla"
+    return "lm.moe" if cfg.moe is not None else "lm.dense"
+
+
+def _scan_inputs(fn, calls: tuple) -> dict:
+    """Run ``fn()``; copies of the arguments of its ``ops.selective_scan``
+    calls number ``calls`` (0 the first), as {"layer{i}": args}."""
+    from repro_torch.kernels import ops
+    captured, count, real = {}, [0], ops.selective_scan
+
+    def capture(*args):
+        if count[0] in calls:
+            captured[f"layer{count[0]}"] = tuple(
+                None if t is None else t.clone() for t in args)
+        count[0] += 1
+        return real(*args)
+
+    ops.selective_scan = capture
+    try:
+        fn()
+    finally:
+        ops.selective_scan = real
+    return captured
+
+
+def phase_lm_attn(arch: str, dev: str = "cuda",
+                  n_layers: int | None = None):
+    """Attention serving at full width (module docstring, phases 9–13):
+    qwen2-moe-a2.7b (``lm.moe``, then ``moe_dfep`` on its routing
+    before it is freed) and qwen3-4b (``lm.dense``) at full depth,
+    jamba-v0.1-52b (``lm.hybrid``) and deepseek-v2-236b (``lm.mla``) at
+    ``n_layers``. Returns {"launches": generate's launches, "moe_dfep": the
+    moe_dfep path's launches (qwen2-moe only), "scan_inputs": the first SSM
+    layer's scan arguments in a prefill (hybrid only)}."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serve import serve_step as SS
 
-    cfg = get_config(arch)
-    name = "lm.moe" if cfg.moe is not None else "lm.dense"
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    name = _lm_phase_name(cfg)
     layers, s_max = cfg.n_layers, LM_PROMPT + LM_NEW
+    pattern = cfg.layer_pattern
+    kinds = [pattern[i % len(pattern)] for i in range(layers)]
+    n_ssm = kinds.count("ssm")
+    n_moe = sum(cfg.moe_at(i % len(pattern)) for i in range(layers))
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params, t_init = wall(lambda: lm.init_params(cfg, gen, dev))
     leaves = _leaves(params)
     h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
-    log({"phase": f"{name}.init", "arch": cfg.name, "n_layers": layers,
+    log({"phase": f"{name}.init", "arch": cfg.name, "family": cfg.family,
+         "n_layers": layers, "layer_pattern": list(pattern),
+         "cut": None if n_layers is None else {
+             "n_layers": [full.n_layers, layers],
+             "param_count_full": full.param_count()},
          "d_model": cfg.d_model, "heads": h, "kv_heads": kv,
          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
          "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+         "mla": None if cfg.mla is None else dataclasses.asdict(cfg.mla),
+         "ssm_layers": n_ssm, "moe_layers": n_moe,
          "moe": None if cfg.moe is None else {
              "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
              "d_ff_expert": cfg.moe.d_ff_expert,
-             "n_shared": cfg.moe.n_shared,
+             "n_shared": cfg.moe.n_shared, "every": cfg.moe.every,
              "capacity_prefill": L.moe_capacity(cfg, LM_BATCH * LM_PROMPT),
              "capacity_decode": L.moe_capacity(cfg, LM_BATCH)},
          "vocab_pad": lm.vocab_pad(cfg), "params": sum(
@@ -2574,8 +2725,8 @@ def phase_lm_attn(arch: str, dev: str = "cuda"):
     if cfg.moe is not None:
         require(np.isfinite(aux) and aux > 0, f"MoE aux {aux} is not "
                 "finite and positive")
-        require(len(routes) == layers, f"{len(routes)} MoE calls in a "
-                f"prefill of {layers} layers")
+    require(len(routes) == n_moe, f"{len(routes)} MoE calls in a prefill "
+            f"of {layers} layers, {n_moe} of them MoE")
     t_warm = wall(lambda: SS.prefill(cfg, params, prompts))[1]
     drops_prefill, seq_drop = _dropped(routes, LM_BATCH)
 
@@ -2617,8 +2768,13 @@ def phase_lm_attn(arch: str, dev: str = "cuda"):
     require(tuple(out.shape) == (LM_BATCH, LM_NEW)
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
             "generate's tokens are not [B, n_new] ids of the vocabulary")
-    require(len(gen_routes) == (layers * LM_NEW if cfg.moe else 0),
+    require(len(gen_routes) == n_moe * LM_NEW,
             f"generate made {len(gen_routes)} MoE calls")
+    # the SSM layers' scan: once per layer and forward (prefill + decode)
+    require(launches.get("selective_scan", 0) == n_ssm * LM_NEW,
+            f"generate launched selective_scan "
+            f"{launches.get('selective_scan', 0)} times, not {n_ssm} x "
+            f"{LM_NEW}")
 
     # decode for token s against a prefill of s + 1 tokens where no token
     # was dropped: on the prompts' sequences that neither prefill dropped a
@@ -2653,14 +2809,17 @@ def phase_lm_attn(arch: str, dev: str = "cuda"):
          "decode": _device_profile(
              lambda: SS.decode(cfg, params, tok, grown, LM_PROMPT))})
     log({"phase": f"{name}.sdpa_yardstick", **_sdpa_yardstick(cfg, gen)})
-    dfep_launches = None
-    if cfg.moe is not None:
-        dfep_launches = phase_moe_dfep(cfg, params, routes[0], x0)
+    result = {"launches": launches, "moe_dfep": None, "scan_inputs": None}
+    if arch == LM_MOE_ARCH:
+        result["moe_dfep"] = phase_moe_dfep(cfg, params, routes[0], x0)
+    if n_ssm:   # the first SSM layer's scan, for the kernels phase
+        result["scan_inputs"] = _scan_inputs(
+            lambda: SS.prefill(cfg, params, prompts), (0,))["layer0"]
     log({"phase": f"{name}.peak", "peak_mib": peak_mib()})
     del params, leaves, engine, logits, caches, grown, last
     del routes, gen_routes, dec_routes
     torch.cuda.empty_cache()
-    return dfep_launches
+    return result
 
 
 def _patched_like(plan, gen, arrivals: int = 32):
@@ -2897,7 +3056,7 @@ def _gspmm_checks(Kn, plan, patched, gen):
     within GSPMM_ADD_RTOL on non-negative inputs."""
     dev = plan.device
     errs, rels = {}, {}
-    for f in (1,) + GSPMM_WIDTHS:
+    for f in (1,) + GSPMM_WIDTHS + (GSPMM_LANE_WIDTH,):
         feats = torch.rand((plan.k, plan.v_max, f), generator=gen,
                            device=dev)
         if f == 1:
@@ -2948,7 +3107,10 @@ def _gspmm_timing(Kn, plan, gen, times):
     out = {"largest_hub": hub}
     cases = [(f"f{f}", f, False) for f in GSPMM_WIDTHS] + \
         [("feature_f8", 8, True)]
-    for name, f, per_feature in cases:
+    lane_cases = [(f"lanes_f{GSPMM_LANE_WIDTH}", GSPMM_LANE_WIDTH, False),
+                  (f"lanes_feature_f{GSPMM_LANE_WIDTH}", GSPMM_LANE_WIDTH,
+                   True)]
+    for name, f, per_feature in cases + lane_cases:
         feats = torch.rand((plan.k, plan.v_max, f), generator=gen,
                            device=dev)
         wide = torch.rand(tuple(plan.emask.shape) + (f,), generator=gen,
@@ -2969,13 +3131,16 @@ def _gspmm_timing(Kn, plan, gen, times):
             del lib, got
         iters = 20 if f <= 8 else 5
         t.update(times(iters=iters, **fns))
+        t["bound_ms"], t["bound_by"] = _gspmm_bound(plan, f, per_feature)
+        out[name] = t
+        if name.startswith("lanes"):    # the batched GNN runs' widths
+            del feats, fns, wide
+            continue
         pairs = [(device_ms(call(hub_only)), device_ms(call(empty)))
                  for _ in range(HUB_REPEATS)]
         t["hub_only_ms"] = [h for h, _ in pairs]
         t["empty_ms"] = [e for _, e in pairs]
         t["hub_run_ms"] = float(np.median([h - e for h, e in pairs]))
-        t["bound_ms"], t["bound_by"] = _gspmm_bound(plan, f, per_feature)
-        out[name] = t
         del feats, fns, wide
     lay = Kn.gspmm_layout(plan)
     out["layout"] = {"chunk_slots": lay.chunk_slots, "chunks": lay.n_chunks,
@@ -3340,14 +3505,16 @@ def _scan_bound(b: int, s: int, d: int, n: int, h0: bool):
     return ops_ms, "operations", terms
 
 
-def _selective_scan_section(captured, gen, times) -> dict:
+def _selective_scan_section(captured, hybrid, gen, times) -> dict:
     """selective_scan against its plain loop, y and h_last within SCAN_REL
     of their largest |value|: seeded inputs at the prefill shape (the
     captured layers' [B, S, Di] and N; the JAX
     kernel tests' distributions) from a zero and a random h0, S = 1 from a
-    random h0 (decode), and the lm phase's captured layer inputs; timed at
-    the prefill shape from a zero state, as prefill calls it, and at S = 1
-    from h0, as decode calls it; bounds from :func:`_scan_bound`."""
+    random h0 (decode), the lm phase's captured layer inputs and the
+    lm.hybrid phase's (``hybrid``: jamba's first SSM layer); timed at
+    the prefill shape from a zero state, as prefill calls it, at S = 1
+    from h0, as decode calls it, and on jamba's inputs; bounds from
+    :func:`_scan_bound`."""
     from repro_torch import cuda_build
     from repro_torch.kernels import ops, ref
     x0, a0 = captured["layer0"][0], captured["layer0"][4]
@@ -3365,7 +3532,7 @@ def _selective_scan_section(captured, gen, times) -> dict:
              "prefill_h0": (x, dt, bb, cc, a, dsk, h0),
              "decode": (x[:, :1].contiguous(), dt[:, :1].contiguous(),
                         bb[:, :1].contiguous(), cc[:, :1].contiguous(), a,
-                        dsk, h0), **captured}
+                        dsk, h0), **captured, "jamba.layer0": hybrid}
     err, rel = {}, {}
     for name, args in cases.items():
         got = ops.selective_scan(*args)
@@ -3388,11 +3555,17 @@ def _selective_scan_section(captured, gen, times) -> dict:
         *cases["decode"]))
     t["decode_plain_ms"] = device_ms(lambda: ref.selective_scan_ref(
         *cases["decode"]))
+    hb, hs, hd = hybrid[0].shape
+    hn = hybrid[4].shape[1]
+    t["hybrid_ms"] = device_ms(lambda: ops.selective_scan(*hybrid))
     terms = {"prefill": _scan_bound(b, s, d, n, h0=False),
-             "decode": _scan_bound(b, 1, d, n, h0=True)}
+             "decode": _scan_bound(b, 1, d, n, h0=True),
+             "hybrid": _scan_bound(hb, hs, hd, hn, h0=hybrid[6] is not None)}
     t["bound_ms"], t["bound_by"] = terms["prefill"][:2]
     t["decode_bound_ms"], t["decode_bound_by"] = terms["decode"][:2]
-    out = {"shape": [b, s, d, n], "max_abs_err": max(err.values()),
+    t["hybrid_bound_ms"], t["hybrid_bound_by"] = terms["hybrid"][:2]
+    out = {"shape": [b, s, d, n], "hybrid_shape": [hb, hs, hd, hn],
+           "max_abs_err": max(err.values()),
            "lanes_per_channel": cuda_build.query("selective_scan_lanes")(n),
            "bound_terms": {k: v[2] for k, v in terms.items()}, **t}
     log({"phase": "kernels.selective_scan", **out})
@@ -3432,10 +3605,12 @@ def _masked_update_block(Kn, block, gen, times) -> dict:
 
 def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
                   etsch_launches, sssp_state, lm_launches, lm_inputs,
-                  serve_launches, stream, dist_launches, moe_dfep_launches):
+                  serve, stream, dist_launches, moe_dfep_launches,
+                  hybrid):
     from repro_torch.engine import kernels as Kn
     from repro_torch.engine.plan import shard_plan
 
+    serve_launches = serve["launches"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = plan.device
     rows = torch.arange(plan.k, device=dev)[:, None] * plan.v_max
@@ -3559,7 +3734,8 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
     lc = _lane_cumsum_section(g, owner, gen, times)
     fm = _frontier_min_section(part, gen, times)
     mp = _minplus_section(g, part, road_part, gen, times, sssp_state)
-    ss = _selective_scan_section(lm_inputs, gen, times)
+    ss = _selective_scan_section(lm_inputs, hybrid["scan_inputs"], gen,
+                                 times)
 
     seg_bound, seg_by = _seg_bound(plan)
     mu_bound, mu_by = _mu_bound(plan)
@@ -3652,6 +3828,14 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "bound_by": gs_t["f8"]["bound_by"],
          "library_ms": gs_t["f8"]["library_ms"],
          "combine": "add", "shape": [plan.k, plan.e_max, 8],
+         "serve_lanes_launches": {
+             name: row["launches_batched"]["gspmm"]
+             for name, row in serve["gspmm_lanes"].items()},
+         "lanes": {name: dict({k: gs_t[name][k] for k in (
+             "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=gs_t[name].get("library_ms"))
+             for name in (f"lanes_f{GSPMM_LANE_WIDTH}",
+                          f"lanes_feature_f{GSPMM_LANE_WIDTH}")},
          "empty_ms": float(np.median(gs_t["f8"]["empty_ms"])),
          "hub_run_ms": gs_t["f8"]["hub_run_ms"],
          **{name: dict({k: gs_t[name][k] for k in (
@@ -3708,6 +3892,7 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "source": "src/repro_torch/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:28",
          "launches": lm_launches["selective_scan"],
+         "launches_hybrid": hybrid["launches"]["selective_scan"],
          "max_abs_err": ss["max_abs_err"],
          "ms": ss["kernel_ms"], "plain_ms": ss["plain_ms"],
          "bound_ms": ss["bound_ms"], "bound_by": ss["bound_by"],
@@ -3717,6 +3902,9 @@ def phase_kernels(plan, launches, gnn_launches, g, owner, part, road_part,
          "decode_bound_ms": ss["decode_bound_ms"],
          "decode_bound_by": ss["decode_bound_by"],
          "lanes_per_channel": ss["lanes_per_channel"],
+         "hybrid": {"shape": ss["hybrid_shape"], "ms": ss["hybrid_ms"],
+                    "bound_ms": ss["hybrid_bound_ms"],
+                    "bound_by": ss["hybrid_bound_by"]},
          "bound_terms": ss["bound_terms"]},
     ]}
 
@@ -3831,16 +4019,19 @@ def main() -> int:
                                                   sssp_state)
     dist_launches = phase_dist(g, owner, main_results)
     lm_launches, lm_inputs = phase_lm()
-    moe_dfep_launches = phase_lm_attn(LM_MOE_ARCH)
+    moe_dfep_launches = phase_lm_attn(LM_MOE_ARCH)["moe_dfep"]
     phase_lm_attn(LM_DENSE_ARCH)
+    hybrid = phase_lm_attn(LM_HYBRID_ARCH, n_layers=LM_HYBRID_LAYERS)
+    phase_lm_attn(LM_MLA_ARCH, n_layers=LM_MLA_LAYERS)
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
-                                lm_launches, lm_inputs, serve["launches"],
-                                stream, dist_launches, moe_dfep_launches)
-    del lm_inputs
+                                lm_launches, lm_inputs, serve, stream,
+                                dist_launches, moe_dfep_launches, hybrid)
+    del lm_inputs, hybrid
     phase_cpu_equal()
     _dist_cpu_equal()
-    for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH):
+    for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH, LM_HYBRID_ARCH,
+                 LM_MLA_ARCH):
         _lm_cpu_equal(arch)
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -1,7 +1,7 @@
 """Config registry. The port carries the configurations of the
 architectures it runs; the other ids of the JAX package's registry are
 known here and raise ``NotImplementedError`` until their family is ported
-(``ROADMAP.md``, queue 1 item 10)."""
+(``ROADMAP.md``, queue 1, "Modules to port")."""
 from __future__ import annotations
 
 import importlib
@@ -22,8 +22,8 @@ ARCH_IDS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
 }
 #: The modules this package ports.
-PORTED = ("falcon_mamba_7b", "qwen3_0_6b", "qwen2_1_5b", "granite_3_2b",
-          "qwen3_4b", "qwen2_moe_a2_7b")
+PORTED = ("falcon_mamba_7b", "jamba_v01_52b", "qwen3_0_6b", "qwen2_1_5b",
+          "granite_3_2b", "qwen3_4b", "qwen2_moe_a2_7b", "deepseek_v2_236b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -33,7 +33,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
                        f"{', '.join(ARCH_IDS)}")
     if mod_name not in PORTED:
         raise NotImplementedError(
-            f"{arch}: not ported to repro_torch yet (see ROADMAP.md, queue 1 "
-            f"item 10); ported: {', '.join(PORTED)}")
+            f"{arch}: not ported to repro_torch yet (see ROADMAP.md, queue 1, "
+            f"\"Modules to port\"); ported: {', '.join(PORTED)}")
     mod = importlib.import_module(f"{__name__}.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -28,10 +28,12 @@ Batched queries (the serving scenario) answer S queries in one superstep
 loop. Where the reference vmaps its whole loop, the port vmaps only the
 program's per-lane hooks (``torch.func.vmap``) and lays the S lanes out
 as a trailing axis, ``[K, Vmax, S(, F)]``: each sweep is one
-``segment_reduce`` launch and each superstep one ``exchange`` launch at
-F = S·F for the whole micro-batch. Per-lane masks on the device stop each
-lane where its solo run would stop, so every lane's state and counters
-are its solo run's.
+``segment_reduce`` (or, for the ``edge_mul`` programs, ``gspmm``) launch
+and each superstep one ``exchange`` launch at F = S·F for the whole
+micro-batch. A value every lane shares (a lane axis of stride 0, as vmap
+hands back what no lane's input reached) is swept once for all lanes.
+Per-lane masks on the device stop each lane where its solo run would
+stop, so every lane's state and counters are its solo run's.
 
 ``Engine(plan, group=...)`` is the multi-device path, the reference's
 ``shard_map`` over a 1-d mesh: one rank of a ``torch.distributed`` process
@@ -217,12 +219,31 @@ def _expand(mask: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return mask.view(tuple(mask.shape) + (1,) * (ref.ndim - 2))
 
 
+def _shared(x: torch.Tensor, axis: int) -> bool:
+    """True where every index of ``x`` along ``axis`` is one tensor: an
+    axis of stride 0, as ``torch.func.vmap`` hands back an output that no
+    lane's input reached (an ``expand``), so all hold the same values."""
+    return x.ndim > axis and x.shape[axis] > 1 and x.stride(axis) == 0
+
+
+def _spread(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """``x`` with a new axis of ``n`` at ``axis``, shared (stride 0)."""
+    x = x.unsqueeze(axis)
+    shape = list(x.shape)
+    shape[axis] = n
+    return x.expand(shape)
+
+
 def _planes(fn, plan: PartitionPlan, x: torch.Tensor, combine: str):
     """``fn(plan, x, combine)`` for a kernel wrapper, with ``x``
     [K, N, *tail] laid out as the kernels take it: [K, N] or [K, N, F]
     with F contiguous. A batched state's tail (lanes, features) is
     flattened into F, which the kernels treat column by column, and
-    restored on the result."""
+    restored on the result; lanes that share one plane (axis 2 of stride
+    0) run it once."""
+    if _shared(x, 2):
+        return _spread(_planes(fn, plan, x.select(2, 0), combine), 2,
+                       x.shape[2])
     if x.ndim <= 3:
         return fn(plan, x.contiguous(), combine)
     k, tail = x.shape[0], tuple(x.shape[2:])
@@ -231,12 +252,16 @@ def _planes(fn, plan: PartitionPlan, x: torch.Tensor, combine: str):
 
 
 def _sweep(plan: PartitionPlan, prog: EdgeProgram, state, ctx, *,
-           use_kernels: bool):
-    """One Gather-Apply sweep: per-target aggregate [K, Vmax(, ...)]."""
+           use_kernels: bool, lanes: bool = False):
+    """One Gather-Apply sweep: per-target aggregate [K, Vmax(, ...)].
+    ``lanes``: ``prog`` is a :func:`_lane_program`, its state's axis 2
+    the lanes."""
     pre = prog.pre(state, ctx)                              # [K, Vmax(, F)]
     if prog.edge_mul is not None:   # gSpMM path (GNN programs)
         w = prog.edge_mul(plan, ctx)
         spmm = kernels.gspmm if use_kernels else kernels.gspmm_ref
+        if lanes:
+            return _lane_gspmm(spmm, plan, pre, w, prog.combine)
         agg = spmm(plan, pre, w, prog.combine)              # [K, Vmax, F]
         return agg[:, :, 0] if pre.ndim == 2 else agg
     rows = torch.arange(plan.k, device=pre.device)[:, None]
@@ -246,6 +271,35 @@ def _sweep(plan: PartitionPlan, prog: EdgeProgram, state, ctx, *,
     seg = kernels.segment_reduce if use_kernels \
         else kernels.segment_reduce_ref
     return _planes(seg, plan, msgs, prog.combine)
+
+
+def _lane_gspmm(spmm, plan: PartitionPlan, pre: torch.Tensor,
+                w: torch.Tensor, combine: str) -> torch.Tensor:
+    """One ``spmm`` call for every lane. ``pre`` [K, Vmax, S(, F)] and the
+    lanes' weights ``w`` [K, Emax, S] (scalar) or [K, Emax, S, F] (per
+    feature) ride gspmm's feature axis as S·F columns, which it treats
+    one by one (a mean divides each by the same live degree). Scalar
+    weights the lanes share stay one [K, Emax] plane; where features and
+    weights are both shared, one lane's F columns run. Returns
+    [K, Vmax, S(, F)]."""
+    feats = pre if pre.ndim == 4 else pre[..., None]        # [K,Vmax,S,F]
+    w4 = w if w.ndim == 4 else w[..., None]                 # [K,Emax,S,·]
+    k, v_max, n, f = feats.shape
+    if _shared(feats, 2) and _shared(w4, 2):
+        one = w4[:, :, 0]
+        agg = _spread(spmm(plan, feats[:, :, 0].contiguous(),
+                           one[..., 0] if one.shape[2] == 1 else
+                           one.contiguous(), combine), 2, n)
+    else:
+        flat = feats.expand(k, v_max, n, f).reshape(k, v_max, n * f)
+        if _shared(w4, 2) and w4.shape[3] == 1:
+            weights = w4[:, :, 0, 0].contiguous()           # [K, Emax]
+        else:
+            weights = w4.expand(k, plan.e_max, n, f).reshape(
+                k, plan.e_max, n * f).contiguous()
+        agg = spmm(plan, flat.contiguous(), weights,
+                   combine).view(k, v_max, n, f)
+    return agg if pre.ndim == 4 else agg[..., 0]
 
 
 def _exchange(plan: PartitionPlan, values, combine: str, *,
@@ -352,18 +406,51 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     return prog.finalize(glob, present, plan, ctx), steps, litot, converged
 
 
-def _lane_program(prog: EdgeProgram, plan: PartitionPlan) -> EdgeProgram:
-    """``prog`` with its per-sweep hooks mapped over a lane axis: state,
-    aggregates and messages are [K, N, S(, F)] (lane axis 2, where the
-    kernels want it), ``ctx`` has a leading lane axis."""
-    edge = None
+def _lane_map(fn, args: tuple, axes: tuple, out_axis: int, n: int):
+    """``fn`` over ``n`` lanes: ``args[i]``, a tensor or a dict of them,
+    carries its lanes on ``axes[i]``. A tensor whose lanes are shared
+    (:func:`_shared`) enters ``fn`` once (vmap's ``in_dims`` None), so
+    what only such tensors reach stays shared. The output carries its
+    lanes on ``out_axis``."""
+    def split(x, axis):
+        return (x.select(axis, 0), None) if _shared(x, axis) else (x, axis)
+
+    inputs, dims, batched = [], [], False
+    for a, axis in zip(args, axes):
+        if isinstance(a, dict):
+            parts = {name: split(v, axis) for name, v in a.items()}
+            inputs.append({name: p[0] for name, p in parts.items()})
+            dims.append({name: p[1] for name, p in parts.items()})
+            batched |= any(p[1] is not None for p in parts.values())
+        else:
+            x, d = split(a, axis)
+            inputs.append(x)
+            dims.append(d)
+            batched |= d is not None
+    if not batched:
+        return _spread(fn(*inputs), out_axis, n)
+    return vmap(fn, in_dims=tuple(dims))(*inputs).movedim(0, out_axis)
+
+
+def _lane_program(prog: EdgeProgram, plan: PartitionPlan, n: int
+                  ) -> EdgeProgram:
+    """``prog`` with its per-sweep hooks mapped over ``n`` lanes: state,
+    aggregates, messages and ``edge_mul``'s weights are [K, N, S(, F)]
+    (lane axis 2, where the kernels want it), ``ctx`` has a leading lane
+    axis."""
+    def lanes(fn, axes):
+        return lambda *args: _lane_map(fn, args, axes, 2, n)
+
+    edge = edge_mul = None
     if prog.edge is not None:
-        lane_edge = vmap(lambda m, c: prog.edge(m, plan, c), in_dims=(2, 0),
-                         out_dims=2)
+        lane_edge = lanes(lambda m, c: prog.edge(m, plan, c), (2, 0))
         edge = lambda msgs, _plan, ctx: lane_edge(msgs, ctx)  # noqa: E731
-    return prog._replace(
-        pre=vmap(prog.pre, in_dims=(2, 0), out_dims=2),
-        apply=vmap(prog.apply, in_dims=(2, 2, 0), out_dims=2), edge=edge)
+    if prog.edge_mul is not None:
+        lane_w = lanes(lambda c: prog.edge_mul(plan, c), (0,))
+        edge_mul = lambda _plan, ctx: lane_w(ctx)  # noqa: E731
+    return prog._replace(pre=lanes(prog.pre, (2, 0)),
+                         apply=lanes(prog.apply, (2, 2, 0)), edge=edge,
+                         edge_mul=edge_mul)
 
 
 def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
@@ -386,17 +473,19 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     n = int(next(iter(batched_kw.values())).shape[0])
     ctx = vmap(lambda b: prog.prepare(plan, {**kw, **b}))(batched_kw)
     if prev is None:
-        st = vmap(lambda c: prog.init(plan, c), out_dims=2)(ctx)
+        st = _lane_map(lambda c: prog.init(plan, c), (ctx,), (0,), 2, n)
     else:
-        st = vmap(lambda pv, c: prog.warm_init(plan, pv, c),
-                  out_dims=2)(prev, ctx)
-    st = st.contiguous()                                # [K, Vmax, S(, F)]
-    lane = _lane_program(prog, plan)
+        st = _lane_map(lambda pv, c: prog.warm_init(plan, pv, c),
+                       (prev, ctx), (0, 0), 2, n)
+    if not _shared(st, 2):
+        st = st.contiguous()                            # [K, Vmax, S(, F)]
+    lane = _lane_program(prog, plan, n)
     dev = st.device
 
     def sweep(s):
         return lane.apply(s, _sweep(plan, lane, s, ctx,
-                                    use_kernels=use_kernels), ctx)
+                                    use_kernels=use_kernels, lanes=True),
+                          ctx)
 
     def where(mask, new, old):                          # mask [S]
         return torch.where(mask.view((n,) + (1,) * (new.ndim - 3)), new,
@@ -442,7 +531,8 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         converged = ~changed      # still changing => the cap cut it off
     else:  # partial aggregation: lock-step, fixed superstep count
         for _ in range(max_supersteps):
-            agg = _sweep(plan, lane, st, ctx, use_kernels=use_kernels)
+            agg = _sweep(plan, lane, st, ctx, use_kernels=use_kernels,
+                         lanes=True)
             full = _exchange(plan, agg, prog.combine,
                              use_kernels=use_kernels, group=group)
             st = lane.apply(st, full, ctx)
@@ -453,8 +543,8 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     if group is not None:   # the critical path, lane by lane
         C.all_reduce_(litot, "max", group)
     glob, present = _gather_global(plan, st, group)     # [V, S(, F)]
-    state = vmap(lambda g, c: prog.finalize(g, present, plan, c),
-                 in_dims=(1, 0))(glob, ctx)
+    state = _lane_map(lambda g, c: prog.finalize(g, present, plan, c),
+                      (glob, ctx), (1, 0), 0, n)
     return state.contiguous(), steps, litot, converged
 
 
@@ -575,14 +665,9 @@ class Engine:
         for multi-source SSSP), and its state and counters equal that
         query's solo run. ``warm_state`` is a [S, V(, F)] block, one
         previous-result row per lane (rows of ``spec.fill`` cold-start
-        their lane). Programs on the ``gspmm`` path (``edge_mul``) take no
-        lanes: :class:`BatchAxisError`."""
+        their lane). Programs on the ``gspmm`` path (``edge_mul``) carry
+        the lanes on its feature axis: one launch a sweep for the batch."""
         start = _start(self.plan)
-        if prog.edge_mul is not None:
-            raise BatchAxisError(
-                f"program {prog.name!r} sweeps through gspmm (edge_mul), "
-                "which carries no lane axis — dispatch its queries one at "
-                "a time")
         steps = _steps(prog, max_supersteps)
         batched_kw = {name: torch.as_tensor(v, device=self.plan.device)
                       for name, v in batched_kw.items()}

@@ -5,8 +5,9 @@ engine, one line per request.
         --smoke --device cpu --batch 4 --prompt-len 16 --n-new 8
 
 ``--arch`` takes the ported configurations: falcon-mamba-7b (ssm),
-qwen3-0.6b, qwen2-1.5b, granite-3-2b, qwen3-4b (dense) and qwen2-moe-a2.7b
-(moe); ``--smoke`` picks the reduced config. Runs on the card unless
+jamba-v0.1-52b (hybrid), qwen3-0.6b, qwen2-1.5b, granite-3-2b, qwen3-4b
+(dense), qwen2-moe-a2.7b and deepseek-v2-236b (moe, the latter with MLA);
+``--smoke`` picks the reduced config. Runs on the card unless
 ``--device cpu``. One device: no ``--mesh``, and no ``--perf`` (the JAX
 launcher's tuned settings are settings of its XLA scan, flash VJP and
 dry-run specs, which this path does not have).

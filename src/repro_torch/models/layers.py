@@ -1,7 +1,7 @@
 """Building blocks of the port's models (the counterpart of
 ``repro/models/layers.py``): RMSNorm, RoPE, GQA attention with the flash
-scan and decode attention, the SwiGLU MLP and the capacity-bounded MoE.
-MLA is not ported.
+scan and decode attention, MLA (DeepSeek-V2's latent attention, its
+decode absorbed), the SwiGLU MLP and the capacity-bounded MoE.
 
 Parameters are stored float32 and cast to bfloat16 at each use; compute
 runs in bfloat16 with float32 where the reference computes in float32
@@ -239,6 +239,106 @@ def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
         new_cache = (k.transpose(1, 2), v.transpose(1, 2))
 
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(COMPUTE_DTYPE))
+    return y.to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Shape of each MLA parameter: the KV compression ``w_dkv`` [d, L]
+    and its ``kv_norm``, the decoupled RoPE key ``w_kr`` [d, dr], the
+    up-projections ``w_uk`` [L, h, dn] and ``w_uv`` [L, h, dv], the
+    queries ``w_uq`` [q_in, h, dn + dr] (from ``w_dq`` [d, q_lora] and
+    ``q_norm`` where ``q_lora``) and ``wo`` [h, dv, d]."""
+    m, d = cfg.mla, cfg.d_model
+    h = cfg.n_heads                       # padded to a multiple of tp = 1
+    dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    out = {"w_dkv": (d, m.kv_lora), "w_kr": (d, dr),
+           "w_uk": (m.kv_lora, h, dn), "w_uv": (m.kv_lora, h, dv),
+           "w_uq": (m.q_lora or d, h, dn + dr), "wo": (h, dv, d),
+           "kv_norm": (m.kv_lora,)}
+    if m.q_lora:
+        out.update(w_dq=(d, m.q_lora), q_norm=(m.q_lora,))
+    return out
+
+
+def init_mla(cfg, generator: torch.Generator, repeats: int, device=None
+             ) -> dict[str, torch.Tensor]:
+    """``repeats`` MLA layers' parameters, each stacked [R, ...], with the
+    reference's distributions: normal·0.02, ``wo`` ·0.02/√(2·n_layers),
+    unit norms."""
+    return _stacked(generator, mla_shapes(cfg), repeats, device,
+                    {"wo": _out_scale(cfg)})
+
+
+def mla_attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+                  cache=None, cache_len=None):
+    """Multi-head latent attention, prefill or decode.
+
+    The cache holds only the latent: (c_kv [B, S, kv_lora], k_rope
+    [B, S, dr]), bfloat16. Prefill materialises per-head keys and values
+    from it and runs the flash scan (dh = dn + dr, dv, no grouping);
+    decode is absorbed: ``w_uk`` folded into the query and ``w_uv`` into
+    the output, in float32, attending in the latent space to positions
+    below ``cache_len + S``. prefill: x [B, S, D] -> (out, (c_kv, k_rope));
+    decode: x [B, 1, D] and ``cache`` [B, S_max, ·] -> (out, new caches
+    with this step's latent written at ``cache_len``; the caches passed in
+    are left as they were).
+    """
+    m = cfg.mla
+    b, sq, _ = x.shape
+    xc = x.to(COMPUTE_DTYPE)
+    h = p["w_uq"].shape[1]
+    dn, dr = m.nope_head_dim, m.rope_head_dim
+
+    q_in = xc
+    if m.q_lora:
+        q_in = rms_norm(xc @ p["w_dq"].to(COMPUTE_DTYPE), p["q_norm"],
+                        cfg.rms_eps)
+    q = torch.einsum("bsd,dhk->bhsk", q_in, p["w_uq"].to(COMPUTE_DTYPE))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rms_norm(xc @ p["w_dkv"].to(COMPUTE_DTYPE), p["kv_norm"],
+                    cfg.rms_eps)                             # [B, S, L]
+    k_rope = apply_rope(xc @ p["w_kr"].to(COMPUTE_DTYPE), positions,
+                        cfg.rope_theta)                      # [B, S, dr]
+
+    if cache is not None:
+        # write this step's latent at cache_len (clamped to fit, as
+        # ``dynamic_update_slice`` clamps), into copies of the caches
+        ckv_cache, kr_cache = (c.clone() for c in cache)
+        s_len = ckv_cache.shape[1]
+        start = min(max(int(cache_len), 0), s_len - sq)
+        ckv_cache[:, start:start + sq] = c_kv.to(ckv_cache.dtype)
+        kr_cache[:, start:start + sq] = k_rope.to(kr_cache.dtype)
+        q_c = torch.einsum("bhsk,lhk->bhsl", q_nope.float(),
+                           p["w_uk"].float())                # [B,H,1,L]
+        lat, krc = ckv_cache.float(), kr_cache.float()
+        logits = (torch.einsum("bhsl,btl->bhst", q_c, lat)
+                  + torch.einsum("bhsk,btk->bhst", q_rope.float(), krc)
+                  ) * (1.0 / math.sqrt(dn + dr))
+        valid = torch.arange(s_len, device=x.device) < cache_len + sq
+        logits = torch.where(valid, logits, float("-inf"))
+        pr = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        pr = pr / pr.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        o_lat = torch.einsum("bhst,btl->bhsl", pr, lat)      # [B,H,1,L]
+        out = torch.einsum("bhsl,lhv->bhsv", o_lat, p["w_uv"].float())
+        new_cache = (ckv_cache, kr_cache)
+    else:
+        k_nope = torch.einsum("bsl,lhk->bhsk", c_kv,
+                              p["w_uk"].to(COMPUTE_DTYPE))
+        vfull = torch.einsum("bsl,lhv->bhsv", c_kv,
+                             p["w_uv"].to(COMPUTE_DTYPE))
+        kr = k_rope[:, None].expand(b, h, sq, dr).to(k_nope.dtype)
+        k = torch.cat([k_nope, kr], dim=-1)
+        out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                              vfull, causal=True)
+        new_cache = (c_kv, k_rope)
+
+    y = torch.einsum("bhsv,hvd->bsd", out.to(COMPUTE_DTYPE),
+                     p["wo"].to(COMPUTE_DTYPE))
     return y.to(x.dtype), new_cache
 
 

@@ -1,16 +1,20 @@
 """Decoder-only language model over the port's layers (the counterpart of
-``repro/models/lm.py``; the ``ssm``, ``dense`` and ``moe`` families).
+``repro/models/lm.py``): the ``ssm`` (falcon-mamba-7b), ``hybrid``
+(jamba-v0.1-52b), ``dense`` (qwen3-0.6b, qwen2-1.5b, granite-3-2b,
+qwen3-4b) and ``moe`` (qwen2-moe-a2.7b; deepseek-v2-236b with MLA)
+families.
 
 Layout of ``params`` (the reference's, so that carrying weights across is
 a copy, never a transpose):
   embed      [V_pad, D]
   blocks     {"l0": ..., "l{P-1}": ...}  — each leaf stacked [R, ...]:
-             norm1, mixer (attention or SSM), and norm2 + ffn (MLP or MoE)
-             where the layer has an FFN
+             norm1, mixer (attention, MLA or SSM), and norm2 + ffn (MLP
+             or MoE) where the layer has an FFN
   final_norm [D];  lm_head [V_pad, D] (absent if tied)
 
 Caches (decode), per pattern position, stacked [R, ...]:
   attn -> (k [R, B, S, KV, dh] bf16, v [R, B, S, KV, dh] bf16)
+  mla  -> (c_kv [R, B, S, kv_lora] bf16, k_rope [R, B, S, dr] bf16)
   ssm  -> (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)
 
 Layers run as a Python loop over the R repeats: the port has no ``scan``
@@ -29,19 +33,15 @@ from . import layers as L
 from . import ssm as S
 
 #: Families ``forward_lm``, ``decode_step`` and ``init_params`` run.
-PORTED_FAMILIES = ("ssm", "dense", "moe")
+PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (see ROADMAP.md, queue 1 item 10); ported: "
+            f"yet (see ROADMAP.md, queue 1, \"Modules to port\"); ported: "
             f"{', '.join(PORTED_FAMILIES)}")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported to repro_torch yet "
-            f"(see ROADMAP.md, queue 1 item 10)")
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -57,6 +57,7 @@ def _layer_shapes(cfg: ModelConfig, kind: str, pos: int) -> dict[str, Any]:
 
     out: dict[str, Any] = {"norm1": (r, d)}
     out["mixer"] = stack(S.param_shapes(cfg) if kind == "ssm"
+                         else L.mla_shapes(cfg) if cfg.mla is not None
                          else L.attention_shapes(cfg))
     fk = cfg.ffn_kind(pos)
     if fk != "none":
@@ -85,6 +86,8 @@ def _init_layer(cfg: ModelConfig, kind: str, pos: int,
         "norm1": torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)}
     if kind == "ssm":
         p["mixer"] = S.init_ssm(cfg, generator, r, dev)
+    elif cfg.mla is not None:
+        p["mixer"] = L.init_mla(cfg, generator, r, dev)
     else:
         p["mixer"] = L.init_attention(cfg, generator, r, dev)
     fk = cfg.ffn_kind(pos)
@@ -158,10 +161,16 @@ def params_to_numpy(params) -> dict[str, Any]:
 def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
                  x: torch.Tensor, *, positions, cache=None, cache_len=None):
     """Pre-norm residual layer: the mixer, then the FFN where the layer
-    has one. Returns (x, new_cache, aux)."""
+    has one (an MoE where ``cfg.moe_at(pos)``: ``pos`` is the layer's
+    position in the pattern, not its global index, as in the reference).
+    Returns (x, new_cache, aux)."""
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     if kind == "ssm":
         y, new_cache = S.ssm_block(cfg, p["mixer"], h, state=cache)
+    elif cfg.mla is not None:
+        y, new_cache = L.mla_attention(cfg, p["mixer"], h,
+                                       positions=positions, cache=cache,
+                                       cache_len=cache_len)
     else:
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions,
                                    cache=cache, cache_len=cache_len)
@@ -260,8 +269,9 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
     """{"l{i}": ((shape, dtype, seq_axis), ...)} of the decode caches: for
     each tensor also the axis of its sequence (None if it has none), so
     that a server grows by kind, never by matching shapes. Attention:
-    (k, v) [R, B, S, KV, dh] bf16, sequence on axis 2; SSM state has no
-    sequence axis: (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)."""
+    (k, v) [R, B, S, KV, dh] bf16; MLA: (c_kv [R, B, S, kv_lora], k_rope
+    [R, B, S, dr]) bf16; both with the sequence on axis 2. SSM state has
+    no sequence axis: (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)."""
     _require_ported(cfg)
     r = cfg.block_repeats
     out = {}
@@ -271,6 +281,11 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
             out[f"l{i}"] = (
                 ((r, batch, s_cfg.d_conv - 1, d_in), torch.bfloat16, None),
                 ((r, batch, d_in, s_cfg.d_state), torch.float32, None))
+        elif cfg.mla is not None:
+            m = cfg.mla
+            out[f"l{i}"] = (
+                ((r, batch, s_max, m.kv_lora), torch.bfloat16, 2),
+                ((r, batch, s_max, m.rope_head_dim), torch.bfloat16, 2))
         else:
             _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
             shape = (r, batch, s_max, kv, cfg.head_dim)

@@ -16,6 +16,8 @@ from repro.core import graph as RG
 from repro.core.graph import edge_weights
 from repro.stream.patch import EdgeChange, patch_plan
 from repro_torch import engine as TE
+from repro_torch.engine import kernels as TK
+from repro_torch.engine import runtime
 from repro_torch.core import graph as TG
 
 CPU = "cpu"
@@ -139,15 +141,110 @@ def test_batched_warm_state_shape_is_checked(engines):
                         warm_state=np.zeros(N_VERTICES))
 
 
-def test_gspmm_programs_take_no_lanes(engines):
-    """No registered program is both batchable and on the gspmm path;
-    batching one raises a typed error instead of running lanes through a
-    kernel that has none."""
+def test_empty_lane_axis_raises(engines):
+    """A batch with no lanes raises a typed error instead of running."""
     _, teng = engines["k3"]
-    with pytest.raises(TE.BatchAxisError, match="gspmm"):
-        teng.dispatch_batched(TE.GCN_LAYER, {"x": np.zeros((2, 1))})
     with pytest.raises(TE.BatchAxisError, match="lane"):
         teng.dispatch_batched(TE.SSSP, {"source": np.zeros(0, np.int32)})
+
+
+# ---------------------------------------------------------------------------
+# the gspmm (edge_mul) programs: lanes on gspmm's feature axis
+# ---------------------------------------------------------------------------
+
+#: A lane against the reference's and against its own solo run: the
+#: same float32 sums, the reference's segment sum in another order.
+GSPMM_LANE_ATOL = 1e-5
+
+
+def _gspmm_batch(case: str):
+    """(program, batched kw, shared kw) of an edge_mul batch: GCN with a
+    batched weight ([3, 8, 4]: the lanes share one loop state) or batched
+    features ([2, 151, 8]); KGE with batched entity and relation planes
+    (per-lane per-feature weights)."""
+    rng = np.random.default_rng(7)
+    deg = np.asarray(_graph().degrees())
+    x = rng.normal(size=(N_VERTICES, 8)).astype(np.float32)
+    w = rng.normal(size=(8, 4)).astype(np.float32)
+    if case == "gcn-weight":
+        return ("gcn_layer",
+                {"weight": rng.normal(size=(3, 8, 4)).astype(np.float32)},
+                {"x": x, "degrees": deg})
+    if case == "gcn-x":
+        return ("gcn_layer",
+                {"x": rng.normal(size=(2, N_VERTICES, 8)).astype(
+                    np.float32)}, {"weight": w, "degrees": deg})
+    e_pad = _graph().e_pad
+    return ("kge_score",
+            {"entity": rng.normal(size=(3, N_VERTICES, 8)).astype(
+                np.float32),
+             "relation": rng.normal(size=(3, e_pad, 8)).astype(np.float32)},
+            {})
+
+
+@pytest.mark.parametrize("case", ["gcn-weight", "gcn-x", "kge"])
+@pytest.mark.parametrize("plan", PLANS)
+def test_gspmm_programs_run_lanes_like_reference(engines, plan, case,
+                                                 monkeypatch):
+    """Each lane within GSPMM_LANE_ATOL of the reference's ``run_batched``
+    (its vmapped loop) and of the port's own solo run, with one gspmm
+    call a sweep for the whole batch."""
+    eng, teng = engines[plan]
+    name, bkw, kw = _gspmm_batch(case)
+    prog, tprog = _programs(name)
+    ref = eng.run_batched(prog, bkw, **kw)
+    calls = []
+    real = TK.gspmm
+    monkeypatch.setattr(TK, "gspmm", lambda *a, **k: calls.append(
+        tuple(a[1].shape)) or real(*a, **k))
+    port = teng.run_batched(tprog, bkw, **kw)
+    lanes = len(next(iter(bkw.values())))
+    assert tuple(port.state.shape) == tuple(np.asarray(ref.state).shape)
+    assert port.state.shape[0] == lanes
+    np.testing.assert_allclose(port.state.numpy(), np.asarray(ref.state),
+                               rtol=0, atol=GSPMM_LANE_ATOL)
+    assert port.row() == ref.row()
+    f = 8 if case == "gcn-weight" else 8 * lanes   # shared state: one plane
+    assert calls == [(teng.plan.k, teng.plan.v_max, f)]
+    monkeypatch.setattr(TK, "gspmm", real)
+    for i in range(lanes):
+        solo = teng.run(tprog, **{k: v[i] for k, v in bkw.items()}, **kw)
+        np.testing.assert_allclose(port.state[i].numpy(), solo.state.numpy(),
+                                   rtol=0, atol=GSPMM_LANE_ATOL)
+        assert (int(port.supersteps[i]), bool(port.converged[i])) == (
+            solo.supersteps, solo.converged)
+
+
+@pytest.mark.parametrize("combine", ["add", "max", "mean"])
+@pytest.mark.parametrize("layout", ["lanes", "shared-w", "shared-feats",
+                                    "shared-both", "scalar-state"])
+def test_lane_gspmm_equals_a_call_per_lane(engines, layout, combine):
+    """Folding the lanes into gspmm's feature axis gives each lane the
+    plain ``gspmm_ref`` of its own plane, bit for bit, for every combine
+    (a mean divides every column by the same live degree), whether the
+    features, the weights or both are shared by the lanes."""
+    plan = engines["k4-slack8"][1].plan
+    gen = torch.Generator().manual_seed(3)
+    n, f = 3, 4
+    k, v_max, e_max = plan.k, plan.v_max, plan.e_max
+    feats = torch.randn((k, v_max, n, f), generator=gen)
+    w = torch.rand((k, e_max, n, f), generator=gen)
+    if layout in ("shared-feats", "shared-both"):
+        feats = feats[:, :, :1].expand(k, v_max, n, f)
+    if layout in ("shared-w", "shared-both"):
+        w = torch.rand((k, e_max), generator=gen)[:, :, None].expand(
+            k, e_max, n)
+    if layout == "scalar-state":
+        feats, w = feats[..., 0], w[..., 0]
+    got = runtime._lane_gspmm(TK.gspmm_ref, plan, feats, w, combine)
+    assert got.shape == feats.shape
+    for i in range(n):
+        wi = w[:, :, i]
+        want = TK.gspmm_ref(plan, feats[:, :, i].contiguous(),
+                            wi.contiguous(), combine)
+        if feats.ndim == 3:
+            want = want[:, :, 0]
+        assert torch.equal(got[:, :, i], want), i
 
 
 # ---------------------------------------------------------------------------

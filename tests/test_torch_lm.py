@@ -332,7 +332,8 @@ def test_get_config_of_unported_architecture_raises(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b", "granite-3-2b",
-                                  "qwen3-4b", "qwen2-moe-a2.7b"])
+                                  "qwen3-4b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b", "deepseek-v2-236b"])
 def test_get_config_of_ported_architecture_matches_reference(arch):
     """The port's CONFIG and SMOKE equal the reference's field for field,
     and so do their parameter counts and layer patterns."""
@@ -349,22 +350,27 @@ def test_get_config_and_unported_family():
     assert TC.get_config("falcon_mamba_7b").name == "falcon-mamba-7b"
     with pytest.raises(KeyError):
         TC.get_config("no-such-model")
-    hybrid = ref_config("jamba-v0.1-52b", smoke=True)
-    port_hybrid = TC.ModelConfig(
-        name=hybrid.name, family=hybrid.family, n_layers=hybrid.n_layers,
-        d_model=hybrid.d_model, n_heads=hybrid.n_heads, n_kv=hybrid.n_kv,
-        d_ff=hybrid.d_ff, vocab=hybrid.vocab,
-        attn_period=hybrid.attn_period)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.init_params(port_hybrid, torch.Generator(), CPU)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TL.forward_lm(port_hybrid, {}, torch.zeros((1, 2), dtype=torch.int64))
-    # an MoE config with MLA attention (deepseek-v2) is not ported either
+    # the encdec and vlm families (whisper, llava) are not ported yet
+    for family in ("encdec", "vlm"):
+        cfg = TC.ModelConfig(name=family, family=family, n_layers=2,
+                             d_model=64, n_heads=4, n_kv=4, d_ff=128,
+                             vocab=256)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TL.init_params(cfg, torch.Generator(), CPU)
+        with pytest.raises(NotImplementedError, match=family):
+            TL.forward_lm(cfg, {}, torch.zeros((1, 2), dtype=torch.int64))
+        with pytest.raises(NotImplementedError, match=family):
+            TL.param_shapes(cfg)
+    # the hybrid family and MLA attention are ported
+    hybrid = TC.get_config("jamba-v0.1-52b", smoke=True)
+    assert "hybrid" in TL.PORTED_FAMILIES
+    assert set(TL.param_shapes(hybrid)["blocks"]) == {"l0", "l1", "l2", "l3"}
     mla = TC.ModelConfig(name="mla", family="moe", n_layers=2, d_model=64,
                          n_heads=4, n_kv=4, d_ff=128, vocab=256,
-                         mla=TC.MlaConfig(kv_lora=32))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TL.param_shapes(mla)
+                         mla=TC.MlaConfig(kv_lora=32),
+                         moe=TC.MoeConfig(n_experts=4, top_k=2))
+    assert TL.param_shapes(mla)["blocks"]["l0"]["mixer"]["w_dkv"] == \
+        (2, 64, 32)
 
 
 def test_launch_serve_prints_one_line_per_request():

@@ -1,6 +1,7 @@
-"""repro_torch's ``dense`` and ``moe`` language-model families (qwen3-0.6b,
-qwen2-1.5b, granite-3-2b, qwen3-4b, qwen2-moe-a2.7b) against the JAX
-package on the CPU, each on its SMOKE config with the JAX init's
+"""repro_torch's ``dense``, ``moe`` and ``hybrid`` language-model families
+(qwen3-0.6b, qwen2-1.5b, granite-3-2b, qwen3-4b, qwen2-moe-a2.7b,
+deepseek-v2-236b with MLA, jamba-v0.1-52b) against the JAX package on the
+CPU, each on its SMOKE config with the JAX init's
 parameters carried across by ``params_from_reference``: ``forward_lm``
 (logits, caches, the MoE ``aux``), ``decode_step``, greedy
 ``Engine.generate``, the cache layout, the parameters and the launcher.
@@ -50,8 +51,8 @@ from repro_torch.serve import serve_step as TSS
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3-0.6b", "qwen2-1.5b", "granite-3-2b", "qwen3-4b",
-         "qwen2-moe-a2.7b"]
-DENSE = [a for a in ARCHS if a != "qwen2-moe-a2.7b"]
+         "qwen2-moe-a2.7b", "deepseek-v2-236b", "jamba-v0.1-52b"]
+DENSE = ["qwen3-0.6b", "qwen2-1.5b", "granite-3-2b", "qwen3-4b"]
 LOGIT_REL = 1e-2
 BATCH, N_NEW = 3, 6
 CPU = "cpu"
@@ -90,13 +91,27 @@ def _close_to_max(got, want, rel=LOGIT_REL):
     assert err <= rel * scale, (err, scale)
 
 
-def _grow(caches, s_max):
-    """The reference's caches padded to ``s_max`` along the sequence."""
-    def pad(x):
-        widths = [(0, 0)] * x.ndim
-        widths[2] = (0, s_max - x.shape[2])
-        return jnp.pad(x, widths)
-    return jax.tree.map(pad, caches)
+def _grow(tcfg, caches, s_max):
+    """The reference's caches padded to ``s_max`` along the sequence axis
+    of each cache kind (``cache_struct``'s: attention's and MLA's; an SSM
+    state has none). The reference's ``Engine.generate`` picks caches by
+    shape instead, which pads jamba's conv window at a 3-token prompt."""
+    struct = TL.cache_struct(tcfg, 1, s_max)
+    out = {}
+    for name, tensors in caches.items():
+        grown = []
+        for x, (_, _, axis) in zip(tensors, struct[name]):
+            if axis is not None:
+                widths = [(0, 0)] * x.ndim
+                widths[axis] = (0, s_max - x.shape[axis])
+                x = jnp.pad(x, widths)
+            grown.append(x)
+        out[name] = tuple(grown)
+    return out
+
+
+def _seq_axis(tcfg, name: str, i: int):
+    return TL.cache_struct(tcfg, 1, 1)[name][i][2]
 
 
 @pytest.mark.parametrize("s", [8, 3])
@@ -119,9 +134,10 @@ def test_forward_lm_matches_reference(arch, s):
         assert float(aux) > 0
         assert abs(float(aux) - float(jaux)) <= 1e-5 * float(jaux)
     assert set(tc) == set(jc)
-    for got, want in zip(tc["l0"], jc["l0"]):
-        assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
-        _close_to_max(got, want)
+    for name in jc:
+        for got, want in zip(tc[name], jc[name]):
+            assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+            _close_to_max(got, want)
     # without collect_cache there are no caches
     assert TL.forward_lm(tcfg, tparams, torch.from_numpy(toks))[2] is None
 
@@ -145,7 +161,7 @@ def test_decode_step_matches_reference(arch):
     nxt = _prompts(2, seed=20, vocab=cfg.vocab)
     with jax.disable_jit():
         _, jc = RSS.prefill(cfg, params, jnp.asarray(toks))
-    jc = _grow(jc, s_max)
+    jc = _grow(tcfg, jc, s_max)
     _, tc = TSS.prefill(tcfg, tparams, torch.from_numpy(toks))
     tc = TSS.grow_caches(tcfg, tc, BATCH, s_max)
     for k in range(2):
@@ -161,18 +177,21 @@ def test_decode_step_matches_reference(arch):
         tc = new
         assert tl.shape == (BATCH, 1, TL.vocab_pad(tcfg))
         _close_to_max(tl, jl)
-        for got, want in zip(tc["l0"], jc["l0"]):
-            assert got.shape == (tcfg.block_repeats,) + want.shape[1:]
-            _close_to_max(got, want)
+        for name in jc:
+            for got, want in zip(tc[name], jc[name]):
+                assert got.shape == (tcfg.block_repeats,) + want.shape[1:]
+                _close_to_max(got, want)
 
 
-def _reference_logits_along(cfg, params, prompts, tokens) -> np.ndarray:
+def _reference_logits_along(cfg, params, prompts, tokens,
+                            tcfg) -> np.ndarray:
     """A JAX prefill-plus-decode loop, op by op, fed ``tokens`` [B, n]
-    (the port's choices): each step's logits over the real vocabulary."""
+    (the port's choices), its caches grown by kind: each step's logits
+    over the real vocabulary."""
     s = prompts.shape[1]
     with jax.disable_jit():
         lg, c = RSS.prefill(cfg, params, jnp.asarray(prompts))
-        c = _grow(c, s + tokens.shape[1])
+        c = _grow(tcfg, c, s + tokens.shape[1])
         out = [lg[:, -1]]
         for k in range(tokens.shape[1] - 1):
             lg, c = RSS.decode(cfg, params, jnp.asarray(tokens[:, k:k + 1]),
@@ -190,7 +209,7 @@ def test_generate_matches_reference_greedy_loop(arch):
         torch.from_numpy(prompts), N_NEW)
     assert toks.dtype == torch.int32 and toks.shape == (BATCH, N_NEW)
     toks = toks.numpy()
-    lj = _reference_logits_along(cfg, params, prompts, toks)
+    lj = _reference_logits_along(cfg, params, prompts, toks, tcfg)
     tol = LOGIT_REL * np.abs(lj).max()
     chosen = np.take_along_axis(lj, toks[..., None].astype(np.int64), -1)
     assert (chosen[..., 0] >= lj.max(-1) - tol).all()
@@ -239,7 +258,10 @@ def test_generate_equals_own_prefill_decode_loop(arch):
         if ok.any():
             _close_to_max(logits[ok_t], full[ok_t][:, -1:])
             checked += 1
-        assert caches["l0"][0].shape[2] == s + N_NEW
+        for name, c in caches.items():
+            for i, t in enumerate(c):
+                axis = _seq_axis(tcfg, name, i)
+                assert axis is None or t.shape[axis] == s + N_NEW
         tok = TSS.greedy_token(logits[:, -1:], tcfg.vocab)
         want.append(tok)
     assert checked > 0
@@ -252,10 +274,15 @@ def test_cache_struct_matches_reference(arch):
     want, _ = RL.cache_struct(cfg, 2, 24)
     got = TL.cache_struct(tcfg, 2, 24)
     assert set(got) == set(want)
-    for ws, (shape, dtype, axis) in zip(want["l0"], got["l0"]):
-        assert tuple(ws.shape) == shape and axis == 2
-        assert str(ws.dtype) == "bfloat16" and dtype == torch.bfloat16
-
+    for i, kind in enumerate(tcfg.layer_pattern):
+        for ws, (shape, dtype, axis) in zip(want[f"l{i}"], got[f"l{i}"]):
+            assert tuple(ws.shape) == shape
+            assert str(dtype).removeprefix("torch.") == str(ws.dtype)
+            # attention's and MLA's caches grow along the sequence; the
+            # SSM state has none
+            assert axis == (None if kind == "ssm" else 2)
+            if axis is not None:
+                assert shape[axis] == 24
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_from_reference_round_trip_and_checks(arch):
@@ -266,9 +293,10 @@ def test_params_from_reference_round_trip_and_checks(arch):
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref_np)):
         np.testing.assert_array_equal(a, b)
     bad = jax.tree.map(lambda a: a, ref_np)
-    bad["blocks"]["l0"]["mixer"]["wq"] = bad["blocks"]["l0"]["mixer"]["wq"][
-        ..., :-1]
-    with pytest.raises(ValueError, match="wq"):
+    mixer = bad["blocks"]["l0"]["mixer"]
+    name = next(k for k in sorted(mixer) if mixer[k].ndim >= 3)
+    mixer[name] = mixer[name][..., :-1]
+    with pytest.raises(ValueError, match=name):
         TL.params_from_reference(tcfg, bad, CPU)
     extra = jax.tree.map(lambda a: a, ref_np)
     extra["blocks"]["l0"]["ffn"]["w_extra"] = np.zeros(1, np.float32)
@@ -290,19 +318,29 @@ def test_init_params_shapes_and_distributions(arch):
         jax.tree.structure(jax.tree.map(np.asarray, params))
     for a, b in zip(jax.tree.leaves(p), jax.tree.leaves(params)):
         assert tuple(a.shape) == b.shape and a.dtype == torch.float32
-    mixer, ffn = p["blocks"]["l0"]["mixer"], p["blocks"]["l0"]["ffn"]
+    pattern = tcfg.layer_pattern
+    attn = pattern.index("attn")
+    mixer = p["blocks"][f"l{attn}"]["mixer"]
+    ffn = p["blocks"]["l0"]["ffn"]
     for name in ("bq", "bk", "bv"):
         if name in mixer:
             assert not mixer[name].any()
-    for name in ("q_norm", "k_norm"):
+    for name in ("q_norm", "k_norm", "kv_norm"):
         if name in mixer:
             assert torch.equal(mixer[name], torch.ones_like(mixer[name]))
     out = 0.02 / np.sqrt(2 * tcfg.n_layers)
-    spreads = [(mixer["wq"], 0.02), (mixer["wo"], out),
-               (ffn["w_gate"], 0.02), (ffn["w_down"], out),
-               (p["embed"], 0.02)]
-    if tcfg.moe is not None:
-        spreads += [(ffn["router"], 0.006), (ffn["shared"]["w_down"], out)]
+    spreads = [(mixer["w_uq" if tcfg.mla else "wq"], 0.02),
+               (mixer["wo"], out), (ffn["w_gate"], 0.02),
+               (ffn["w_down"], out), (p["embed"], 0.02)]
+    if tcfg.mla is not None:
+        spreads += [(mixer[n], 0.02) for n in ("w_dkv", "w_kr", "w_uk",
+                                               "w_uv", "w_dq")]
+    if tcfg.moe is not None:   # the first layer whose FFN is an MoE
+        first = next(i for i in range(len(pattern)) if tcfg.moe_at(i))
+        moe = p["blocks"][f"l{first}"]["ffn"]
+        spreads += [(moe["router"], 0.006), (moe["w_down"], out)]
+        if tcfg.moe.n_shared:
+            spreads.append((moe["shared"]["w_down"], out))
     for t, std in spreads:
         assert abs(float(t.std()) / std - 1) < 0.1
     again = TL.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
@@ -312,22 +350,24 @@ def test_init_params_shapes_and_distributions(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_count_counts_the_matrices_of_init(arch):
-    """``param_count`` leaves out the vectors (norms, biases, qk norms) and
-    counts the real vocabulary's rows of the embedding and head; every
-    other leaf of the port's parameters is counted."""
+    """``param_count`` leaves out the vectors (norms, biases, qk norms, the
+    SSM's conv and dt biases) and counts the real vocabulary's rows of the
+    embedding and head; every other leaf of the port's parameters is
+    counted."""
     _, _, tcfg, tparams = _model(arch)
     pad_rows = TL.vocab_pad(tcfg) - tcfg.vocab
     total = sum(t.numel() for t in jax.tree.leaves(tparams))
     vectors = sum(t.numel() for path, t in
                   jax.tree_util.tree_leaves_with_path(tparams)
                   if "norm" in jax.tree_util.keystr(path)
-                  or jax.tree_util.keystr(path)[-4:-2] in ("bq", "bk", "bv"))
+                  or path[-1].key in ("bq", "bk", "bv", "conv_b", "dt_bias"))
     heads = 1 if tcfg.tie_embeddings else 2
     assert total - vectors - heads * pad_rows * tcfg.d_model == \
         tcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_launch_serve_prints_one_line_per_request(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(

@@ -230,7 +230,41 @@ non-zero with no "ok" line):
               vocab 102,400), its depth cut to LM_MLA_LAYERS, after
               jamba is freed: the same steps and checks (the yardstick at
               dh 192 against dv 128).
-14. kernels — each kernel against its plain version on the main path's plan
+14. lm.encdec — whisper-small whole (12 encoder and 12 decoder layers,
+              d_model 768, 12 heads of 64, d_ff 3072, vocab 51,968
+              padded), after deepseek-v2 is freed: LM_ENCDEC_BATCH prompts
+              of LM_ENCDEC_PROMPT tokens and their 1,500 encoder frames
+              from ``SyntheticPipeline`` (seed SEED). The same steps and
+              checks at bf16_rel(24), with the encoder's wall time
+              (``_encode``, first and warm), the cross k/v's and the
+              decoder's prefill from the encoder's output logged apart;
+              decode runs with the cross k/v, and zeroed cross k/v must
+              fall outside the bound as a zeroed self-attention cache
+              must; the same check again with the compute dtype float32
+              within F32_DECODE_REL (the caches, offsets and cross k/v
+              exactly); the yardstick at the decoder's self-attention,
+              its cross-attention (224 queries over 1,500 keys) and the
+              encoder's shapes. ``generate`` must launch none of the
+              kernels.
+15. lm.vlm  — llava-next-34b at full width (d_model 7168, 56 heads over 8
+              kv heads of 128, d_ff 20480, vocab 64,000), its depth cut to
+              LM_VLM_LAYERS (LM_VLM_CUT says why, and why 2 prompts),
+              after whisper is freed: LM_VLM_BATCH prompts of
+              LM_VLM_PROMPT tokens after 2,880 image embeddings from
+              ``SyntheticPipeline`` (4,095 positions; the decode check
+              prefills 4,096). The same steps and checks at
+              bf16_rel(20), and in float32 within F32_DECODE_REL; decode
+              writes and attends at 2,880 + s, and decode at the text's
+              length s (where the reference's ``Engine.generate``
+              decodes) must fall outside the bound. Every decode check
+              also measures the two prefills' disagreement at their last
+              shared position (``prefill_floor``); where that bf16 noise
+              of the model itself exceeds bf16_rel (llava: the s and
+              s + 1 prefills split their keys into 3 and 4 flash-scan
+              blocks), the bf16 decode is held to the floor plus
+              bf16_rel, beside the float32 check. ``generate`` must
+              launch none of the kernels.
+16. kernels — each kernel against its plain version on the main path's plan
               tensors and on a seeded plan-shaped input with deleted prefix
               slots, arrived vertices and a live append region
               (segment_reduce's add also against a second call, bit for
@@ -289,15 +323,15 @@ non-zero with no "ok" line):
               carries lm.hybrid's launches (``launches_hybrid``), and
               gspmm's the batched GNN runs' (``serve_lanes_launches``)
               and its times at F = GSPMM_LANE_WIDTH (``lanes``).
-15. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
+17. cpu     — dblp at scale 0.03, K=16, the same starts: the port on the card
               and the port on the CPU give the same DFEP owner array and
               rounds, the same engine SSSP result, the same ETSCH SSSP and CC
               (same ids) states and counters, and the same partition
-              metrics; and the falcon-mamba, qwen2-moe, qwen3-4b, jamba
-              and deepseek-v2 SMOKE models with the same parameters on
-              both: logits within
-              bf16_rel(4), and the card's greedy tokens the CPU's (up to
-              bfloat16 ties);
+              metrics; and the falcon-mamba, qwen2-moe, qwen3-4b, jamba,
+              deepseek-v2, whisper and llava SMOKE models with the same
+              parameters (and the same frames or image embeddings) on
+              both: logits within bf16_rel of their depth, and the card's
+              greedy tokens the CPU's (up to bfloat16 ties);
               then two gloo ranks run sharded DFEP and the sharded
               engine's SSSP on card 0 and on the CPU, which must give the
               same owner, rounds, state and counters.
@@ -306,6 +340,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -385,6 +420,15 @@ MOE_PERM_REL = 2.0 ** -7
 #    round to bfloat16 at the end, SDPA's products in bfloat16 too; a
 #    yardstick, not a check of the path.
 SDPA_REL = 2.0 ** -6
+#  * decode for token s against a prefill of s + 1 with the compute dtype
+#    float32 (``layers.COMPUTE_DTYPE`` switched for the check), relative to
+#    the largest logit: the same functions summed in other orders
+#    (cuBLAS at M = B and at M = B·S, one softmax against the flash
+#    scan's blocks) over at most 20,480 terms; 2.55e-5 measured on
+#    llava-next-34b at 20 layers. It holds the caches, offsets and cross
+#    k/v of the encdec and vlm phases exactly, where bf16 noise cannot
+#    (below).
+F32_DECODE_REL = 1e-4
 DBLP_SCALE, K, SEED = 1.0, 16, 0
 #: The lm phase: falcon-mamba-7b at full width and depth, B prompts of S
 #: tokens, LM_NEW new tokens each.
@@ -399,6 +443,21 @@ LM_MOE_ARCH, LM_DENSE_ARCH = "qwen2-moe-a2.7b", "qwen3-4b"
 #: 48.3 GiB); the init's out-projection scale follows the cut n_layers.
 LM_HYBRID_ARCH, LM_HYBRID_LAYERS = "jamba-v0.1-52b", 8
 LM_MLA_ARCH, LM_MLA_LAYERS = "deepseek-v2-236b", 3
+#: The lm.encdec phase: whisper-small whole (12 encoder and 12 decoder
+#: layers), B prompts of S text tokens (S + LM_NEW stays inside whisper's
+#: 448-position decoder context) over its 1,500 encoder frames.
+LM_ENCDEC_ARCH, LM_ENCDEC_BATCH, LM_ENCDEC_PROMPT = "whisper-small", 4, 224
+#: The lm.vlm phase: llava-next-34b at full width, its depth cut to 20 of
+#: 60 layers (12.07 B parameters, 45.0 GiB in float32), B prompts of S
+#: text tokens after its 2,880 image embeddings: 2,880 + 1,215 = 4,095 =
+#: 3 x 1,365 keys, and the decode check's 4,096 = 4 x 1,024, both of which
+#: the flash scan's block rule splits.
+LM_VLM_ARCH, LM_VLM_LAYERS = "llava-next-34b", 20
+LM_VLM_BATCH, LM_VLM_PROMPT = 2, 1215
+LM_VLM_CUT = ("45.0 GiB of float32 weights at 20 layers (128.1 GiB at 60); "
+              "2 prompts, not 4: the flash scan's [2, 8, 7, 4095, 1365] "
+              "float32 score blocks (2.5 GB each, several live) put the "
+              "peak near 60 GiB, and 4 prompts near 70")
 #: The MoE model's drop-free decode check: B prompts of S tokens with
 #: B · (S + 1) no more than the capacity's floor of 8 slots an expert, so
 #: no prefill can drop a token (a token routes to an expert once).
@@ -2250,17 +2309,35 @@ def _leaves(tree):
     return [tree]
 
 
-def _logits_along(cfg, params, prompts, tokens):
-    """Prefill ``prompts``, then decode fed ``tokens`` [B, n] (the caches
-    grown to hold them): each step's logits over the real vocabulary,
+def _cross_and_offset(cfg, params, modality: dict) -> tuple:
+    """(the encdec decode's cross k/v or None, the image tokens that
+    precede the text: the decode offset), from a phase's modality
+    inputs."""
+    from repro_torch.models import lm
+    cross = None
+    if "enc_frames" in modality:
+        cross = lm.cross_kvs_from_memory(
+            cfg, params, lm._encode(cfg, params, modality["enc_frames"]))
+    n_img = modality["img_embeds"].shape[1] if "img_embeds" in modality \
+        else 0
+    return cross, n_img
+
+
+def _logits_along(cfg, params, prompts, tokens, modality=None):
+    """Prefill ``prompts`` (with the family's ``modality`` inputs), then
+    decode fed ``tokens`` [B, n] (the caches grown to hold them, each step
+    after the image tokens): each step's logits over the real vocabulary,
     float32 [B, n, V]."""
     from repro_torch.serve import serve_step as SS
-    lg, caches = SS.prefill(cfg, params, prompts)
+    modality = modality or {}
+    cross, n_img = _cross_and_offset(cfg, params, modality)
+    lg, caches = SS.prefill(cfg, params, prompts, **modality)
     b, s = prompts.shape
-    caches = SS.grow_caches(cfg, caches, b, s + tokens.shape[1])
+    caches = SS.grow_caches(cfg, caches, b, n_img + s + tokens.shape[1])
     out = [lg[:, -1]]
     for k in range(tokens.shape[1] - 1):
-        lg, caches = SS.decode(cfg, params, tokens[:, k:k + 1], caches, s + k)
+        lg, caches = SS.decode(cfg, params, tokens[:, k:k + 1], caches,
+                               n_img + s + k, cross)
         out.append(lg[:, -1])
     return torch.stack(out, 1)[..., :cfg.vocab].float()
 
@@ -2393,9 +2470,11 @@ def phase_lm(cfg=None, dev: str = "cuda"):
 
 def _lm_cpu_equal(arch: str = LM_ARCH):
     """``arch``'s SMOKE model with the same parameters on the card and on
-    the CPU: the card's greedy tokens, and every step's logits along
-    them."""
+    the CPU (encdec and vlm with the same audio frames or image embeddings
+    from ``SyntheticPipeline``): the card's greedy tokens, and every
+    step's logits along them."""
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.models import lm
     from repro_torch.serve.serve_step import Engine
 
@@ -2404,15 +2483,24 @@ def _lm_cpu_equal(arch: str = LM_ARCH):
     card = lm.params_from_reference(cfg, lm.params_to_numpy(cpu), "cuda")
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, 16),
                             generator=torch.Generator().manual_seed(SEED))
-    toks = {dev: Engine(cfg, p, s_max=32).generate(prompts.to(dev), 8).cpu()
+    batch = SyntheticPipeline(cfg, DataConfig(LM_BATCH, 16, SEED),
+                              "cpu").batch_at(0)
+    modality = {k: batch[k] for k in ("img_embeds", "enc_frames")
+                if k in batch}
+    on = {"cuda": {k: t.cuda() for k, t in modality.items()},
+          "cpu": modality}
+    toks = {dev: Engine(cfg, p, s_max=32).generate(
+                prompts.to(dev), 8, **on[dev]).cpu()
             for dev, p in (("cuda", card), ("cpu", cpu))}
-    lg_card = _logits_along(cfg, card, prompts.cuda(), toks["cuda"].cuda())
-    lg_cpu = _logits_along(cfg, cpu, prompts, toks["cuda"])
+    lg_card = _logits_along(cfg, card, prompts.cuda(), toks["cuda"].cuda(),
+                            on["cuda"])
+    lg_cpu = _logits_along(cfg, cpu, prompts, toks["cuda"], modality)
     err = float((lg_card.cpu() - lg_cpu).abs().max())
     scale = float(lg_cpu.abs().max())
-    bound = bf16_rel(cfg.n_layers)
+    bound = bf16_rel(cfg.n_layers + cfg.n_enc_layers)
     ok, clear = _greedy_agrees(toks["cuda"], lg_cpu, bound)
-    log({"phase": "cpu_equal.lm", "arch": cfg.name, "tokens_equal":
+    log({"phase": "cpu_equal.lm", "arch": cfg.name,
+         "modality": sorted(modality), "tokens_equal":
          torch.equal(toks["cuda"], toks["cpu"]), "clear_steps": clear,
          "steps": toks["cuda"].numel(), "logits_max_abs": err,
          "max_abs_logit": scale, "logits_rel": err / scale,
@@ -2456,26 +2544,57 @@ def _device_profile(fn) -> dict:
                for op in ("copy_", "mm", "bmm")}}
 
 
-def _decode_vs_prefill(cfg, params, prompts) -> dict:
+@contextlib.contextmanager
+def _compute_dtype(dtype):
+    """Run the port's models with ``layers.COMPUTE_DTYPE`` set to
+    ``dtype`` (the weights are float32, so float32 casts none)."""
+    from repro_torch.models import layers as L
+    real = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        L.COMPUTE_DTYPE = real
+
+
+def _decode_vs_prefill(cfg, params, prompts, modality=None,
+                       compute=None) -> dict:
     """Decode for token s from a prefill of the s prompt tokens against the
     last logits of a prefill of s + 1, on the sequences neither prefill
     dropped a token of (a token's capacity slot is its rank among every
     token routed to its expert, so the two prefills drop differently), and
-    from a zeroed KV cache, which must fall outside the bound. Returns the
+    from a zeroed KV cache, which must fall outside the bound. With the
+    family's ``modality`` inputs: decode after the image tokens (and, as a
+    wrong offset that must fall outside the bound, at the text's length,
+    where the reference's ``Engine.generate`` decodes), or with the
+    encoder's cross k/v (and, zeroed, outside the bound). With
+    ``compute``, the whole check runs with that compute dtype. Returns the
     drops, the sequences checked and, if any, ``rel`` (max |Δ| over the
-    largest logit of those sequences)."""
+    largest logit of those sequences) and ``prefill_floor``: the same
+    measure between the two prefills' logits at their last shared
+    position, the model's own noise at this dtype."""
+    if compute is not None:
+        with _compute_dtype(compute):
+            out = _decode_vs_prefill(cfg, params, prompts, modality)
+        return {**out, "compute": str(compute).removeprefix("torch.")}
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serve import serve_step as SS
 
+    modality = modality or {}
     b, s = prompts.shape
+    cross, n_img = _cross_and_offset(cfg, params, modality)
     with L.record_routing() as r0:
         logits, _, caches = lm.forward_lm(cfg, params, prompts,
-                                          collect_cache=True)
+                                          collect_cache=True, **modality)
     tok = SS.greedy_token(logits[:, -1:], cfg.vocab)
-    grown = SS.grow_caches(cfg, caches, b, s + 1)
+    last = logits[:, -1].float()
+    del logits
+    grown = SS.grow_caches(cfg, caches, b, n_img + s + 1)
+    del caches
     with L.record_routing() as r1:
-        full, _, _ = lm.forward_lm(cfg, params, torch.cat([prompts, tok], 1))
+        full, _, _ = lm.forward_lm(cfg, params, torch.cat([prompts, tok], 1),
+                                   **modality)
     require(bool(torch.isfinite(full).all()), "prefill logits not finite")
     (d0, q0), (d1, q1) = _dropped(r0, b), _dropped(r1, b)
     ok = ~(q0 | q1)
@@ -2485,16 +2604,31 @@ def _decode_vs_prefill(cfg, params, prompts) -> dict:
         return out
     rows = torch.from_numpy(np.flatnonzero(ok)).to(prompts.device)
     want = full[rows, -1].float()
+    prev = full[rows, -2].float()
+    del full
     scale = float(want.abs().max())
-    zeroed = {n: tuple(torch.zeros_like(t) for t in c)
-              for n, c in grown.items()}
+    out["prefill_floor"] = float((last[rows] - prev).abs().max()
+                                 / prev.abs().max())
+
+    def zeros(tree):
+        return {n: tuple(torch.zeros_like(t) for t in c)
+                for n, c in tree.items()}
+
+    cases = [("right", grown, n_img + s, cross),
+             ("kv_zeroed", zeros(grown), n_img + s, cross)]
+    if cross is not None:
+        cases.append(("cross_zeroed", grown, n_img + s, zeros(cross)))
+    if n_img:
+        cases.append(("text_offset", grown, s, cross))
     out["rel"] = {}
-    for label, c in (("right", grown), ("kv_zeroed", zeroed)):
-        dec, _ = SS.decode(cfg, params, tok, c, s)
+    for label, c, at, x in cases:
+        dec, _ = SS.decode(cfg, params, tok, c, at, x)
         require(bool(torch.isfinite(dec).all()), "decode logits not finite")
         out["rel"][label] = float((dec[rows, 0].float() - want).abs().max()
                                   ) / scale
     out["max_abs_logit"] = scale
+    if n_img:
+        out["image_tokens"] = n_img
     return out
 
 
@@ -2517,12 +2651,14 @@ def _with_first_moe_input(fn):
     return out, captured[0] if captured else None
 
 
-def _sdpa_yardstick(cfg, gen) -> dict:
+def _sdpa_yardstick(cfg, gen, batch: int = LM_BATCH, sq: int = LM_PROMPT,
+                    sk: int | None = None, causal: bool = True) -> dict:
     """The port's flash scan against ``scaled_dot_product_attention`` at
-    the prefill's attention shapes (bf16 q [B, H, S, dh], k [B, KV, S, dh],
-    v [B, KV, S, dv], causal; MLA: dh = nope + rope, dv = v_head_dim, KV =
-    H): device ms of each and their largest difference. SDPA is timed here
-    only; the path never calls it."""
+    one of the prefill's attention shapes (bf16 q [B, H, Sq, dh], k
+    [B, KV, Sk, dh], v [B, KV, Sk, dv]; Sk = Sq unless given; MLA: dh =
+    nope + rope, dv = v_head_dim, KV = H): device ms of each and their
+    largest difference. SDPA is timed here only; the path never calls
+    it."""
     from repro_torch.models import layers as L
     h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
     dh = dv = cfg.head_dim
@@ -2531,21 +2667,22 @@ def _sdpa_yardstick(cfg, gen) -> dict:
         dh = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
         dv = cfg.mla.v_head_dim
 
-    def draw(heads, width=dh):
-        return torch.randn((LM_BATCH, heads, LM_PROMPT, width),
+    def draw(heads, seq, width=dh):
+        return torch.randn((batch, heads, seq, width),
                            generator=gen, device=gen.device).to(
                                torch.bfloat16)
 
-    q, k, v = draw(h), draw(kv), draw(kv, dv)
+    sk = sq if sk is None else sk
+    q, k, v = draw(h, sq), draw(kv, sk), draw(kv, sk, dv)
     # SDPA's GQA: the kv heads repeated once, outside the timed call
     k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
 
     def port():
-        return L.flash_attention(q, k, v, True)
+        return L.flash_attention(q, k, v, causal)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=True)
+            q, k_rep, v_rep, is_causal=causal)
 
     a, b = port(), sdpa()
     torch.cuda.synchronize()
@@ -2553,7 +2690,7 @@ def _sdpa_yardstick(cfg, gen) -> dict:
                 / b.float().abs().max())
     require(rel <= SDPA_REL, f"flash scan vs SDPA: max rel {rel}")
     return {"q_shape": list(q.shape), "kv_shape": list(k.shape),
-            "v_shape": list(v.shape),
+            "v_shape": list(v.shape), "causal": causal,
             "flash_scan_ms": device_ms(port), "sdpa_ms": device_ms(sdpa),
             "max_rel_diff": rel, "bound_rel": SDPA_REL}
 
@@ -2631,8 +2768,8 @@ def phase_moe_dfep(cfg, params, first_route, x0) -> dict:
 
 
 def _lm_phase_name(cfg) -> str:
-    if cfg.family == "hybrid":
-        return "lm.hybrid"
+    if cfg.family in ("hybrid", "encdec", "vlm"):
+        return f"lm.{cfg.family}"
     if cfg.mla is not None:
         return "lm.mla"
     return "lm.moe" if cfg.moe is not None else "lm.dense"
@@ -2660,15 +2797,21 @@ def _scan_inputs(fn, calls: tuple) -> dict:
 
 
 def phase_lm_attn(arch: str, dev: str = "cuda",
-                  n_layers: int | None = None):
-    """Attention serving at full width (module docstring, phases 9–13):
+                  n_layers: int | None = None, batch: int = LM_BATCH,
+                  prompt: int = LM_PROMPT, cut_reason: str | None = None):
+    """Attention serving at full width (module docstring, phases 9–15):
     qwen2-moe-a2.7b (``lm.moe``, then ``moe_dfep`` on its routing
-    before it is freed) and qwen3-4b (``lm.dense``) at full depth,
-    jamba-v0.1-52b (``lm.hybrid``) and deepseek-v2-236b (``lm.mla``) at
-    ``n_layers``. Returns {"launches": generate's launches, "moe_dfep": the
-    moe_dfep path's launches (qwen2-moe only), "scan_inputs": the first SSM
-    layer's scan arguments in a prefill (hybrid only)}."""
+    before it is freed), qwen3-4b (``lm.dense``) and whisper-small
+    (``lm.encdec``) at full depth, jamba-v0.1-52b (``lm.hybrid``),
+    deepseek-v2-236b (``lm.mla``) and llava-next-34b (``lm.vlm``) at
+    ``n_layers``; ``batch`` prompts of ``prompt`` text tokens, LM_NEW new
+    ones. encdec and vlm take their audio frames or image embeddings from
+    ``SyntheticPipeline`` (seed SEED). Returns {"launches": generate's
+    launches, "moe_dfep": the moe_dfep path's launches (qwen2-moe only),
+    "scan_inputs": the first SSM layer's scan arguments in a prefill
+    (hybrid only)}."""
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serve import serve_step as SS
@@ -2677,7 +2820,8 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
     cfg = full if n_layers is None else dataclasses.replace(
         full, n_layers=n_layers)
     name = _lm_phase_name(cfg)
-    layers, s_max = cfg.n_layers, LM_PROMPT + LM_NEW
+    layers, s_max = cfg.n_layers, prompt + LM_NEW
+    modal = cfg.family in ("encdec", "vlm")
     pattern = cfg.layer_pattern
     kinds = [pattern[i % len(pattern)] for i in range(layers)]
     n_ssm = kinds.count("ssm")
@@ -2687,11 +2831,16 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
     params, t_init = wall(lambda: lm.init_params(cfg, gen, dev))
     leaves = _leaves(params)
     h, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+    cut = None if n_layers is None else {
+        "n_layers": [full.n_layers, layers],
+        "param_count_full": full.param_count()}
+    if cut_reason is not None:
+        cut.update(batch=batch, reason=cut_reason)
     log({"phase": f"{name}.init", "arch": cfg.name, "family": cfg.family,
-         "n_layers": layers, "layer_pattern": list(pattern),
-         "cut": None if n_layers is None else {
-             "n_layers": [full.n_layers, layers],
-             "param_count_full": full.param_count()},
+         "n_layers": layers, "layer_pattern": list(pattern), "cut": cut,
+         "n_enc_layers": cfg.n_enc_layers,
+         "enc_seq": cfg.enc_seq if cfg.family == "encdec" else None,
+         "n_img_tokens": cfg.n_img_tokens,
          "d_model": cfg.d_model, "heads": h, "kv_heads": kv,
          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
          "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
@@ -2701,25 +2850,36 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
              "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
              "d_ff_expert": cfg.moe.d_ff_expert,
              "n_shared": cfg.moe.n_shared, "every": cfg.moe.every,
-             "capacity_prefill": L.moe_capacity(cfg, LM_BATCH * LM_PROMPT),
-             "capacity_decode": L.moe_capacity(cfg, LM_BATCH)},
+             "capacity_prefill": L.moe_capacity(cfg, batch * prompt),
+             "capacity_decode": L.moe_capacity(cfg, batch)},
          "vocab_pad": lm.vocab_pad(cfg), "params": sum(
              t.numel() for t in leaves), "param_count": cfg.param_count(),
          "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
          "wall_s": t_init, "peak_mib": peak_mib()})
 
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
-                            generator=gen, device=dev)
+    modality, n_img = {}, 0
+    if modal:   # the text, and the frames or image embeddings, of step 0
+        data = SyntheticPipeline(cfg, DataConfig(batch, prompt, SEED),
+                                 dev).batch_at(0)
+        prompts = data["tokens"]
+        modality = {k: data[k] for k in ("img_embeds", "enc_frames")
+                    if k in data}
+        n_img = cfg.n_img_tokens if "img_embeds" in modality else 0
+    else:
+        prompts = torch.randint(0, cfg.vocab, (batch, prompt),
+                                generator=gen, device=dev)
 
     def prefill():
         with L.record_routing() as routes:
-            out = lm.forward_lm(cfg, params, prompts, collect_cache=True)
+            out = lm.forward_lm(cfg, params, prompts, collect_cache=True,
+                                **modality)
         return out, routes
 
     (((logits, aux, caches), routes), x0), t_first = wall(
         lambda: _with_first_moe_input(prefill))
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    require(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, lm.vocab_pad(cfg)),
+    require(tuple(logits.shape) == (batch, n_img + prompt,
+                                    lm.vocab_pad(cfg)),
             f"prefill logits of shape {tuple(logits.shape)}")
     aux = float(aux)
     if cfg.moe is not None:
@@ -2727,16 +2887,32 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
                 "finite and positive")
     require(len(routes) == n_moe, f"{len(routes)} MoE calls in a prefill "
             f"of {layers} layers, {n_moe} of them MoE")
-    t_warm = wall(lambda: SS.prefill(cfg, params, prompts))[1]
-    drops_prefill, seq_drop = _dropped(routes, LM_BATCH)
+    t_warm = wall(lambda: SS.prefill(cfg, params, prompts, **modality))[1]
+    drops_prefill, seq_drop = _dropped(routes, batch)
+    encoder, cross = None, None
+    if "enc_frames" in modality:   # the encoder apart from the decoder
+        frames = modality["enc_frames"]
+        memory, t_enc_first = wall(lambda: lm._encode(cfg, params, frames))
+        t_enc = wall(lambda: lm._encode(cfg, params, frames))[1]
+        cross, t_cross = wall(
+            lambda: lm.cross_kvs_from_memory(cfg, params, memory))
+        t_dec_prefill = wall(lambda: SS.prefill(cfg, params, prompts,
+                                                memory=memory))[1]
+        require(bool(torch.isfinite(memory).all()),
+                "encoder output not finite")
+        encoder = {"frames": list(frames.shape), "first_s": t_enc_first,
+                   "warm_s": t_enc, "cross_kvs_s": t_cross,
+                   "decoder_prefill_warm_s": t_dec_prefill}
+        del memory
 
-    grown = SS.grow_caches(cfg, caches, LM_BATCH, s_max)
+    grown = SS.grow_caches(cfg, caches, batch, n_img + s_max)
     tok = SS.greedy_token(logits[:, -1:], cfg.vocab)
+    start = n_img + prompt
 
     def decode_run():
         c, t, lg = grown, tok, None
-        for n in range(LM_PROMPT, LM_PROMPT + LM_NEW - 1):
-            lg, c = SS.decode(cfg, params, t, c, n)
+        for n in range(start, start + LM_NEW - 1):
+            lg, c = SS.decode(cfg, params, t, c, n, cross)
             t = SS.greedy_token(lg[:, -1:], cfg.vocab)
         return lg
 
@@ -2744,17 +2920,21 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
         last, t_dec_first = wall(decode_run)
     require(bool(torch.isfinite(last).all()), "decode logits not finite")
     t_dec = wall(decode_run)[1]
-    log({"phase": f"{name}.prefill_decode", "batch": LM_BATCH,
-         "prompt_len": LM_PROMPT, "prefill_first_s": t_first,
+    line = {"phase": f"{name}.prefill_decode", "batch": batch,
+            "prompt_len": prompt}
+    if modal:
+        line.update(image_tokens=n_img, positions=n_img + prompt,
+                    encoder=encoder)
+    log({**line, "prefill_first_s": t_first,
          "prefill_warm_s": t_warm,
-         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_warm,
+         "prefill_tokens_per_s": batch * (n_img + prompt) / t_warm,
          "aux": aux, "drops_per_layer": drops_prefill,
          "drops": sum(drops_prefill), "sequences_dropped": seq_drop.tolist(),
          "decode_steps": LM_NEW - 1,
-         "decode_drops": sum(_dropped(dec_routes, LM_BATCH)[0]),
+         "decode_drops": sum(_dropped(dec_routes, batch)[0]),
          "decode_ms_per_step_first": 1e3 * t_dec_first / (LM_NEW - 1),
          "decode_ms_per_step": 1e3 * t_dec / (LM_NEW - 1),
-         "decode_tokens_per_s": LM_BATCH * (LM_NEW - 1) / t_dec,
+         "decode_tokens_per_s": batch * (LM_NEW - 1) / t_dec,
          "peak_mib": peak_mib()})
 
     # the main path: the counters from 0, one generate, read just after
@@ -2762,10 +2942,11 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
     torch.cuda.reset_peak_memory_stats()
     before = _launch_counts()
     with L.record_routing() as gen_routes:
-        out, t_gen = wall(lambda: engine.generate(prompts, LM_NEW))
+        out, t_gen = wall(lambda: engine.generate(prompts, LM_NEW,
+                                                  **modality))
     launches = _delta(before, _launch_counts())
     gen_peak = peak_mib()
-    require(tuple(out.shape) == (LM_BATCH, LM_NEW)
+    require(tuple(out.shape) == (batch, LM_NEW)
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
             "generate's tokens are not [B, n_new] ids of the vocabulary")
     require(len(gen_routes) == n_moe * LM_NEW,
@@ -2775,22 +2956,39 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
             f"generate launched selective_scan "
             f"{launches.get('selective_scan', 0)} times, not {n_ssm} x "
             f"{LM_NEW}")
+    # no layer of the encdec and vlm families reaches a kernel
+    require(not modal or not any(launches.values()),
+            f"{cfg.family}'s generate launched kernels: {launches}")
 
     # decode for token s against a prefill of s + 1 tokens where no token
     # was dropped: on the prompts' sequences that neither prefill dropped a
     # token of, and, for the MoE model, on LM_DROPFREE prompts, too few
     # tokens for any expert to overflow
-    checks = {"prompts": _decode_vs_prefill(cfg, params, prompts)}
+    checks = {"prompts": _decode_vs_prefill(cfg, params, prompts,
+                                            modality)}
+    if modal:   # the same check with float32 compute: the logic, exactly
+        checks["float32"] = _decode_vs_prefill(cfg, params, prompts,
+                                               modality, torch.float32)
     if cfg.moe is not None:
         short = torch.randint(0, cfg.vocab, LM_DROPFREE, generator=gen,
                               device=dev)
         checks["drop_free"] = _decode_vs_prefill(cfg, params, short)
         require(checks["drop_free"]["drops"] == [0, 0],
                 f"the drop-free prompts dropped: {checks['drop_free']}")
-    bound = bf16_rel(layers)
+    bound = bf16_rel(layers + cfg.n_enc_layers)   # encdec: both stacks
+    for c in checks.values():
+        if "rel" not in c:
+            continue
+        # bf16: bf16_rel, unless the model's own two prefills already
+        # disagree at a shared position by more than that (then bf16 noise
+        # cannot tell decode from prefill at bf16_rel: their disagreement
+        # plus bf16_rel); float32: F32_DECODE_REL
+        c["held_to"] = (F32_DECODE_REL if "compute" in c
+                        else bound if c["prefill_floor"] <= bound
+                        else c["prefill_floor"] + bound)
     log({"phase": f"{name}.generate", "new_tokens": LM_NEW, "wall_s": t_gen,
-         "tokens_per_s": LM_BATCH * LM_NEW / t_gen, "launches": launches,
-         "drops": sum(_dropped(gen_routes, LM_BATCH)[0]),
+         "tokens_per_s": batch * LM_NEW / t_gen, "launches": launches,
+         "drops": sum(_dropped(gen_routes, batch)[0]),
          "peak_mib": gen_peak, "first_token_equals_prefill_argmax":
              torch.equal(out[:, :1], tok), "decode_vs_prefill": checks,
          "bound_rel": bound})
@@ -2798,17 +2996,32 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
     require(bool(applied), "no sequence free of drops: nothing held decode "
             "against a prefill of one more token")
     for c in applied:
-        rel = c["rel"]
-        require(rel["right"] <= bound, f"decode vs prefill of s + 1 tokens "
-                f"({c['prompts']}): max rel {rel['right']} > {bound}")
-        require(rel["kv_zeroed"] > bound, f"a zeroed KV cache passes the "
-                f"decode-vs-prefill bound ({c['prompts']}): {rel}")
+        rel, held = c["rel"], c["held_to"]
+        require(rel["right"] <= held, f"decode vs prefill of s + 1 tokens "
+                f"({c['prompts']}, {c.get('compute', 'bfloat16')}): max "
+                f"rel {rel['right']} > {held}")
+        wrong = {k: v for k, v in rel.items() if k != "right"}
+        require(min(wrong.values()) > max(held, bound), f"a zeroed cache "
+                f"or a wrong offset passes the decode-vs-prefill bound "
+                f"({c['prompts']}): {rel}")
 
     log({"phase": f"{name}.profile", "prefill": _device_profile(
-        lambda: lm.forward_lm(cfg, params, prompts, collect_cache=True)),
+        lambda: lm.forward_lm(cfg, params, prompts, collect_cache=True,
+                              **modality)),
          "decode": _device_profile(
-             lambda: SS.decode(cfg, params, tok, grown, LM_PROMPT))})
-    log({"phase": f"{name}.sdpa_yardstick", **_sdpa_yardstick(cfg, gen)})
+             lambda: SS.decode(cfg, params, tok, grown, start, cross))})
+    # the flash scan against SDPA at each of the prefill's attention
+    # shapes: whisper's decoder self-attention, its cross-attention over
+    # the frames and its encoder; the others' (image and) text positions
+    shapes = [("self", prompt, None, True)]
+    if "enc_frames" in modality:
+        shapes += [("cross", prompt, cfg.enc_seq, False),
+                   ("encoder", cfg.enc_seq, None, False)]
+    elif n_img:
+        shapes = [("self", n_img + prompt, None, True)]
+    for label, sq, sk, causal in shapes:
+        log({"phase": f"{name}.sdpa_yardstick", "attention": label,
+             **_sdpa_yardstick(cfg, gen, batch, sq, sk, causal)})
     result = {"launches": launches, "moe_dfep": None, "scan_inputs": None}
     if arch == LM_MOE_ARCH:
         result["moe_dfep"] = phase_moe_dfep(cfg, params, routes[0], x0)
@@ -2816,8 +3029,8 @@ def phase_lm_attn(arch: str, dev: str = "cuda",
         result["scan_inputs"] = _scan_inputs(
             lambda: SS.prefill(cfg, params, prompts), (0,))["layer0"]
     log({"phase": f"{name}.peak", "peak_mib": peak_mib()})
-    del params, leaves, engine, logits, caches, grown, last
-    del routes, gen_routes, dec_routes
+    del params, leaves, engine, logits, caches, grown, last, cross
+    del routes, gen_routes, dec_routes, modality
     torch.cuda.empty_cache()
     return result
 
@@ -4023,6 +4236,10 @@ def main() -> int:
     phase_lm_attn(LM_DENSE_ARCH)
     hybrid = phase_lm_attn(LM_HYBRID_ARCH, n_layers=LM_HYBRID_LAYERS)
     phase_lm_attn(LM_MLA_ARCH, n_layers=LM_MLA_LAYERS)
+    phase_lm_attn(LM_ENCDEC_ARCH, batch=LM_ENCDEC_BATCH,
+                  prompt=LM_ENCDEC_PROMPT)
+    phase_lm_attn(LM_VLM_ARCH, n_layers=LM_VLM_LAYERS, batch=LM_VLM_BATCH,
+                  prompt=LM_VLM_PROMPT, cut_reason=LM_VLM_CUT)
     kernel_line = phase_kernels(plan, launches, gnn_launches, g, owner, part,
                                 road_part, etsch_launches, sssp_state,
                                 lm_launches, lm_inputs, serve, stream,
@@ -4031,7 +4248,7 @@ def main() -> int:
     phase_cpu_equal()
     _dist_cpu_equal()
     for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH, LM_HYBRID_ARCH,
-                 LM_MLA_ARCH):
+                 LM_MLA_ARCH, LM_ENCDEC_ARCH, LM_VLM_ARCH):
         _lm_cpu_equal(arch)
     print(card, flush=True)
     print(json.dumps(kernel_line), flush=True)

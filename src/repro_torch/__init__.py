@@ -7,10 +7,11 @@ serving over it (``gserve``), and the paper's own
 dense ETSCH framework with its partition metrics and baselines, with
 hand-written CUDA kernels (``csrc/``) for the segmented reduce, the replica
 update, gSpMM, the min-plus sweep, the frontier min and DFEP's rank
-cumsum; and Mamba serving (``configs``, ``models``, ``serve``, ``launch``:
-falcon-mamba-7b prefill and greedy decode) through a hand-written
-selective-scan kernel. It imports ``torch`` and numpy and nothing of the
-JAX package.
+cumsum; and language-model serving (``configs``, ``models``, ``serve``,
+``launch``, with ``data``'s synthetic inputs: prefill and greedy decode
+of every family of the JAX package, Mamba's layers through a
+hand-written selective-scan kernel). It imports ``torch`` and numpy and
+nothing of the JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The multi-device path (sharded DFEP and ETSCH, ``Engine(plan, group=...)``)
 runs one rank of a ``torch.distributed`` process group per device.

@@ -1,7 +1,6 @@
-"""Config registry. The port carries the configurations of the
-architectures it runs; the other ids of the JAX package's registry are
-known here and raise ``NotImplementedError`` until their family is ported
-(``ROADMAP.md``, queue 1, "Modules to port")."""
+"""Config registry: the configurations of every architecture of the JAX
+package's registry, each the reference's field for field. An id whose
+module is not in ``PORTED`` raises ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -23,7 +22,8 @@ ARCH_IDS = {
 }
 #: The modules this package ports.
 PORTED = ("falcon_mamba_7b", "jamba_v01_52b", "qwen3_0_6b", "qwen2_1_5b",
-          "granite_3_2b", "qwen3_4b", "qwen2_moe_a2_7b", "deepseek_v2_236b")
+          "granite_3_2b", "qwen3_4b", "qwen2_moe_a2_7b", "deepseek_v2_236b",
+          "whisper_small", "llava_next_34b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -3,9 +3,8 @@
 One ``ModelConfig`` dataclass covers every architecture family of the JAX
 package (dense GQA, MoE, MLA, SSM, hybrid, enc-dec, VLM-stub), so that
 ``param_count`` and the layer pattern are the reference's for any config.
-The port runs the ``ssm``, ``hybrid``, ``dense`` and ``moe`` families
-(MLA included); each architecture file exports ``CONFIG`` (full size) and
-``SMOKE`` (reduced, runs on the CPU).
+The port runs every family (MLA included); each architecture file exports
+``CONFIG`` (full size) and ``SMOKE`` (reduced, runs on the CPU).
 """
 from __future__ import annotations
 

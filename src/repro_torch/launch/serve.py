@@ -6,8 +6,11 @@ engine, one line per request.
 
 ``--arch`` takes the ported configurations: falcon-mamba-7b (ssm),
 jamba-v0.1-52b (hybrid), qwen3-0.6b, qwen2-1.5b, granite-3-2b, qwen3-4b
-(dense), qwen2-moe-a2.7b and deepseek-v2-236b (moe, the latter with MLA);
-``--smoke`` picks the reduced config. Runs on the card unless
+(dense), qwen2-moe-a2.7b and deepseek-v2-236b (moe, the latter with MLA),
+whisper-small (encdec: the encoder gets zero bf16 frames [B, enc_seq, D],
+as the JAX launcher feeds it) and llava-next-34b (vlm: text only, no image
+embeddings, as the JAX launcher runs it); ``--smoke`` picks the reduced
+config. Runs on the card unless
 ``--device cpu``. One device: no ``--mesh``, and no ``--perf`` (the JAX
 launcher's tuned settings are settings of its XLA scan, flash VJP and
 dry-run specs, which this path does not have).
@@ -43,7 +46,11 @@ def main(argv=None) -> None:
     engine = Engine(cfg, params, s_max=args.prompt_len + args.n_new + 8)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    out = engine.generate(prompts, n_new=args.n_new)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_frames"] = torch.zeros((args.batch, cfg.enc_seq, cfg.d_model),
+                                       dtype=torch.bfloat16, device=dev)
+    out = engine.generate(prompts, n_new=args.n_new, **kw)
     for i in range(args.batch):
         print(f"req {i}: {out[i].tolist()}")
 

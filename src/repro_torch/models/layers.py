@@ -1,7 +1,9 @@
 """Building blocks of the port's models (the counterpart of
 ``repro/models/layers.py``): RMSNorm, RoPE, GQA attention with the flash
-scan and decode attention, MLA (DeepSeek-V2's latent attention, its
-decode absorbed), the SwiGLU MLP and the capacity-bounded MoE.
+scan and decode attention, cross-attention (in prefill over the encoder's
+output, in decode over its precomputed k/v), MLA (DeepSeek-V2's latent
+attention, its decode absorbed), the SwiGLU MLP and the capacity-bounded
+MoE.
 
 Parameters are stored float32 and cast to bfloat16 at each use; compute
 runs in bfloat16 with float32 where the reference computes in float32
@@ -201,19 +203,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
-              causal: bool = True, cache=None, cache_len=None):
-    """GQA attention with RoPE, prefill or decode.
+              causal: bool = True, cache=None, cache_len=None,
+              kv_input: torch.Tensor | None = None, use_rope: bool = True):
+    """GQA attention, prefill or decode, self- or cross-attention.
 
-    prefill: x [B, S, D] -> (out [B, S, D], (k, v) each [B, S, KV, dh]);
+    prefill: x [B, S, D] -> (out [B, S, D], (k, v) each [B, Sk, KV, dh]);
     decode:  x [B, 1, D] and ``cache`` (k, v) [B, S_max, KV, dh] -> (out,
     new caches with this step's k/v written at ``cache_len``; the caches
-    passed in are left as they were).
+    passed in are left as they were);
+    cross:   k and v from ``kv_input`` [B, Sk, D] (the encoder's output)
+    instead of x. RoPE only under ``use_rope``, its key positions
+    ``arange(Sk)`` when ``kv_input`` is given.
     """
     b, sq, d = x.shape
     xc = x.to(COMPUTE_DTYPE)
+    kv_src = xc if kv_input is None else kv_input.to(COMPUTE_DTYPE)
     q = torch.einsum("bsd,dhk->bhsk", xc, p["wq"].to(COMPUTE_DTYPE))
-    k = torch.einsum("bsd,dhk->bhsk", xc, p["wk"].to(COMPUTE_DTYPE))
-    v = torch.einsum("bsd,dhk->bhsk", xc, p["wv"].to(COMPUTE_DTYPE))
+    k = torch.einsum("bsd,dhk->bhsk", kv_src, p["wk"].to(COMPUTE_DTYPE))
+    v = torch.einsum("bsd,dhk->bhsk", kv_src, p["wv"].to(COMPUTE_DTYPE))
     if cfg.qkv_bias:
         q = q + p["bq"].to(COMPUTE_DTYPE)[None, :, None, :]
         k = k + p["bk"].to(COMPUTE_DTYPE)[None, :, None, :]
@@ -221,8 +228,11 @@ def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        kv_positions = positions if kv_input is None else torch.arange(
+            k.shape[2], device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
 
     if cache is not None:
         # write this step's k/v at cache_len (clamped to fit, as
@@ -240,6 +250,23 @@ def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
 
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(COMPUTE_DTYPE))
     return y.to(x.dtype), new_cache
+
+
+def attention_fixed_kv(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor) -> torch.Tensor:
+    """Cross-attention against precomputed k/v (encdec decode): x
+    [B, 1, D], k_cache / v_cache [B, S_enc, KV, dh]; the query projection
+    (and its bias), decode attention over all S_enc positions, then
+    ``wo``. No RoPE and no cache write."""
+    q = torch.einsum("bsd,dhk->bhsk", x.to(COMPUTE_DTYPE),
+                     p["wq"].to(COMPUTE_DTYPE))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(COMPUTE_DTYPE)[None, :, None, :]
+    out = decode_attention(q[:, :, 0, :], k_cache, v_cache,
+                           k_cache.shape[1])
+    y = torch.einsum("bhsk,hkd->bsd", out[:, :, None, :],
+                     p["wo"].to(COMPUTE_DTYPE))
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

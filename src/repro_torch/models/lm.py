@@ -1,21 +1,29 @@
-"""Decoder-only language model over the port's layers (the counterpart of
-``repro/models/lm.py``): the ``ssm`` (falcon-mamba-7b), ``hybrid``
-(jamba-v0.1-52b), ``dense`` (qwen3-0.6b, qwen2-1.5b, granite-3-2b,
-qwen3-4b) and ``moe`` (qwen2-moe-a2.7b; deepseek-v2-236b with MLA)
-families.
+"""Language models over the port's layers (the counterpart of
+``repro/models/lm.py``): the decoder-only ``ssm`` (falcon-mamba-7b),
+``hybrid`` (jamba-v0.1-52b), ``dense`` (qwen3-0.6b, qwen2-1.5b,
+granite-3-2b, qwen3-4b) and ``moe`` (qwen2-moe-a2.7b; deepseek-v2-236b
+with MLA) families, the ``encdec`` family (whisper-small: an encoder over
+stub audio-frame embeddings, a decoder that cross-attends to its output)
+and the ``vlm`` family (llava-next-34b: stub image-patch embeddings
+prepended to the text).
 
 Layout of ``params`` (the reference's, so that carrying weights across is
 a copy, never a transpose):
   embed      [V_pad, D]
   blocks     {"l0": ..., "l{P-1}": ...}  — each leaf stacked [R, ...]:
-             norm1, mixer (attention, MLA or SSM), and norm2 + ffn (MLP
-             or MoE) where the layer has an FFN
+             norm1, mixer (attention, MLA or SSM), norm_x + cross
+             (attention; encdec only), and norm2 + ffn (MLP or MoE) where
+             the layer has an FFN
+  enc_blocks {"l0": ...} (encdec only) — attention and a dense MLP, each
+             leaf stacked [n_enc_layers, ...];  enc_final_norm [D]
   final_norm [D];  lm_head [V_pad, D] (absent if tied)
 
 Caches (decode), per pattern position, stacked [R, ...]:
   attn -> (k [R, B, S, KV, dh] bf16, v [R, B, S, KV, dh] bf16)
   mla  -> (c_kv [R, B, S, kv_lora] bf16, k_rope [R, B, S, dr] bf16)
   ssm  -> (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)
+Cross k/v (encdec decode), computed once from the encoder's output:
+  (k [R, B, S_enc, KV, dh] bf16, v [R, B, S_enc, KV, dh] bf16)
 
 Layers run as a Python loop over the R repeats: the port has no ``scan``
 to lower, and each layer's selective scan is one kernel launch.
@@ -33,7 +41,7 @@ from . import layers as L
 from . import ssm as S
 
 #: Families ``forward_lm``, ``decode_step`` and ``init_params`` run.
-PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe")
+PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe", "encdec", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -48,8 +56,11 @@ def vocab_pad(cfg: ModelConfig) -> int:
     return L.pad_to(cfg.vocab, 128)
 
 
-def _layer_shapes(cfg: ModelConfig, kind: str, pos: int) -> dict[str, Any]:
-    r, d = cfg.block_repeats, cfg.d_model
+def _layer_shapes(cfg: ModelConfig, kind: str, pos: int, *,
+                  cross: bool = False, encoder: bool = False
+                  ) -> dict[str, Any]:
+    r = cfg.n_enc_layers if encoder else cfg.block_repeats
+    d = cfg.d_model
 
     def stack(shapes):
         return {k: stack(v) if isinstance(v, dict) else (r,) + v
@@ -59,7 +70,10 @@ def _layer_shapes(cfg: ModelConfig, kind: str, pos: int) -> dict[str, Any]:
     out["mixer"] = stack(S.param_shapes(cfg) if kind == "ssm"
                          else L.mla_shapes(cfg) if cfg.mla is not None
                          else L.attention_shapes(cfg))
-    fk = cfg.ffn_kind(pos)
+    if cross:
+        out["norm_x"] = (r, d)
+        out["cross"] = stack(L.attention_shapes(cfg))
+    fk = "dense" if encoder else cfg.ffn_kind(pos)
     if fk != "none":
         out["norm2"] = (r, d)
         out["ffn"] = stack(L.moe_shapes(cfg) if fk == "moe"
@@ -71,17 +85,27 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The shape of every parameter, in the layout of ``params``."""
     _require_ported(cfg)
     d, vp = cfg.d_model, vocab_pad(cfg)
-    blocks = {f"l{i}": _layer_shapes(cfg, kind, i)
+    cross = cfg.family == "encdec"
+    blocks = {f"l{i}": _layer_shapes(cfg, kind, i, cross=cross)
               for i, kind in enumerate(cfg.layer_pattern)}
     shapes = {"embed": (vp, d), "blocks": blocks, "final_norm": (d,)}
+    if cross:
+        shapes["enc_blocks"] = {"l0": _layer_shapes(cfg, "attn", 0,
+                                                    encoder=True)}
+        shapes["enc_final_norm"] = (d,)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (vp, d)
     return shapes
 
 
 def _init_layer(cfg: ModelConfig, kind: str, pos: int,
-                generator: torch.Generator, dev) -> dict[str, Any]:
-    r, d = cfg.block_repeats, cfg.d_model
+                generator: torch.Generator, dev, *, cross: bool = False,
+                encoder: bool = False) -> dict[str, Any]:
+    """One pattern position's layers, each leaf stacked [R, ...] (R =
+    ``n_enc_layers`` for the encoder): the mixer, under ``cross`` a
+    cross-attention block, and the FFN, always dense under ``encoder``."""
+    r = cfg.n_enc_layers if encoder else cfg.block_repeats
+    d = cfg.d_model
     p: dict[str, Any] = {
         "norm1": torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)}
     if kind == "ssm":
@@ -90,7 +114,10 @@ def _init_layer(cfg: ModelConfig, kind: str, pos: int,
         p["mixer"] = L.init_mla(cfg, generator, r, dev)
     else:
         p["mixer"] = L.init_attention(cfg, generator, r, dev)
-    fk = cfg.ffn_kind(pos)
+    if cross:
+        p["norm_x"] = torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)
+        p["cross"] = L.init_attention(cfg, generator, r, dev)
+    fk = "dense" if encoder else cfg.ffn_kind(pos)
     if fk != "none":
         p["norm2"] = torch.ones((r, d), dtype=L.PARAM_DTYPE, device=dev)
         p["ffn"] = (L.init_moe(cfg, generator, r, dev) if fk == "moe"
@@ -110,8 +137,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params: dict[str, Any] = {
         "embed": L._init(generator, (vocab_pad(cfg), cfg.d_model),
                          device=dev)}
-    params["blocks"] = {f"l{i}": _init_layer(cfg, kind, i, generator, dev)
+    cross = cfg.family == "encdec"
+    params["blocks"] = {f"l{i}": _init_layer(cfg, kind, i, generator, dev,
+                                             cross=cross)
                         for i, kind in enumerate(cfg.layer_pattern)}
+    if cross:
+        params["enc_blocks"] = {"l0": _init_layer(cfg, "attn", 0, generator,
+                                                  dev, encoder=True)}
+        params["enc_final_norm"] = torch.ones(cfg.d_model,
+                                              dtype=L.PARAM_DTYPE, device=dev)
     params["final_norm"] = torch.ones(cfg.d_model, dtype=L.PARAM_DTYPE,
                                       device=dev)
     if not cfg.tie_embeddings:
@@ -159,11 +193,15 @@ def params_to_numpy(params) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
-                 x: torch.Tensor, *, positions, cache=None, cache_len=None):
-    """Pre-norm residual layer: the mixer, then the FFN where the layer
-    has one (an MoE where ``cfg.moe_at(pos)``: ``pos`` is the layer's
-    position in the pattern, not its global index, as in the reference).
-    Returns (x, new_cache, aux)."""
+                 x: torch.Tensor, *, positions, cache=None, cache_len=None,
+                 memory=None, cross_kv=None, causal: bool = True,
+                 encoder: bool = False):
+    """Pre-norm residual layer: the mixer, then cross-attention where the
+    layer has it (over ``memory``, the encoder's output, in a prefill;
+    over the precomputed ``cross_kv`` in decode), then the FFN where the
+    layer has one (an MoE where ``cfg.moe_at(pos)``, never under
+    ``encoder``: ``pos`` is the layer's position in the pattern, not its
+    global index, as in the reference). Returns (x, new_cache, aux)."""
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     if kind == "ssm":
         y, new_cache = S.ssm_block(cfg, p["mixer"], h, state=cache)
@@ -173,12 +211,25 @@ def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
                                        cache_len=cache_len)
     else:
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions,
-                                   cache=cache, cache_len=cache_len)
+                                   causal=causal, cache=cache,
+                                   cache_len=cache_len)
     x = x + y
+    if "cross" in p:
+        hx = L.rms_norm(x, p["norm_x"], cfg.rms_eps)
+        if memory is not None:       # prefill: its k/v cache is dropped
+            y, _ = L.attention(cfg, p["cross"], hx, positions=positions,
+                               causal=False, kv_input=memory,
+                               use_rope=False)
+        elif cross_kv is not None:   # decode: the precomputed k/v
+            y = L.attention_fixed_kv(cfg, p["cross"], hx, *cross_kv)
+        else:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "enc_frames (prefill) or cross_kvs (decode)")
+        x = x + y
     aux = None
     if "ffn" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.rms_eps)
-        if cfg.moe_at(pos):
+        if not encoder and cfg.moe_at(pos):
             y2, aux = L.moe(cfg, p["ffn"], h2)
         else:
             y2 = L.mlp(p["ffn"], h2)
@@ -187,22 +238,30 @@ def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
 
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
-                positions, caches=None, cache_len=None,
+                positions, caches=None, cache_len=None, memory=None,
+                cross_kvs=None, causal: bool = True, encoder: bool = False,
                 collect_cache: bool = False):
-    """The R repeated blocks in order. Returns (x, new caches | None, aux:
-    the MoE losses summed in layer order, float32), the caches stacked
-    [R, ...] as the reference's scan stacks them."""
-    pattern = cfg.layer_pattern
+    """The repeated blocks in order (as many repeats as ``blocks``' leaves
+    stack: ``cfg.block_repeats``, or ``n_enc_layers`` for the encoder,
+    whose pattern is one attention layer). ``caches`` and ``cross_kvs``
+    are indexed per repeat. Returns (x, new caches | None, aux: the MoE
+    losses summed in layer order, float32), the caches stacked [R, ...] as
+    the reference's scan stacks them."""
+    pattern = ("attn",) if encoder else cfg.layer_pattern
     keep = caches is not None or collect_cache
     per_layer: dict[str, list] = {f"l{i}": [] for i in range(len(pattern))}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.block_repeats):
+    for r in range(_repeats(blocks)):
         for i, kind in enumerate(pattern):
             name = f"l{i}"
             p = _index(blocks[name], r)
             c = None if caches is None else tuple(t[r] for t in caches[name])
+            ck = (None if cross_kvs is None
+                  else tuple(t[r] for t in cross_kvs[name]))
             x, nc, a = _apply_layer(cfg, kind, i, p, x, positions=positions,
-                                    cache=c, cache_len=cache_len)
+                                    cache=c, cache_len=cache_len,
+                                    memory=memory, cross_kv=ck,
+                                    causal=causal, encoder=encoder)
             if a is not None:
                 aux = aux + a
             if keep:
@@ -211,6 +270,13 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
         return x, None, aux
     return x, {name: tuple(torch.stack(parts) for parts in zip(*layer))
                for name, layer in per_layer.items()}, aux
+
+
+def _repeats(tree) -> int:
+    """The leading (repeat) axis of a stacked parameter tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
 
 
 def _index(tree, r: int):
@@ -230,34 +296,81 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(L.COMPUTE_DTYPE)
 
 
+def _encode(cfg: ModelConfig, params: dict, enc_frames: torch.Tensor
+            ) -> torch.Tensor:
+    """The encoder over the stub frame embeddings [B, S_enc, D]: its
+    ``n_enc_layers`` layers non-causally, with RoPE at positions
+    ``arange(S_enc)``, then ``enc_final_norm``. Returns the memory the
+    decoder cross-attends to, in ``enc_frames``' dtype."""
+    _require_ported(cfg)
+    positions = torch.arange(enc_frames.shape[1], device=enc_frames.device)
+    x, _, _ = _run_blocks(cfg, params["enc_blocks"], enc_frames,
+                          positions=positions, causal=False, encoder=True)
+    return L.rms_norm(x, params["enc_final_norm"], cfg.rms_eps)
+
+
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+               img_embeds: torch.Tensor | None = None,
+               enc_frames: torch.Tensor | None = None,
+               memory: torch.Tensor | None = None,
                collect_cache: bool = False):
-    """Full-sequence forward (prefill). tokens [B, S] int.
+    """Full-sequence forward (prefill). tokens [B, S_text] int; vlm:
+    ``img_embeds`` [B, N_img, D] prepended (cast to the compute dtype),
+    so the sequence and its positions span N_img + S_text; encdec:
+    ``enc_frames`` [B, S_enc, D] through the encoder as the cross memory,
+    or that memory itself (``_encode``'s output) as ``memory``.
     Returns (logits [B, S, V_pad] bf16, aux (the MoE load-balance losses
     summed over layers; 0.0 without MoE), caches if ``collect_cache`` else
     None)."""
     _require_ported(cfg)
     x = _embed(params, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    if enc_frames is not None:
+        if memory is not None:
+            raise ValueError("pass enc_frames or memory, not both")
+        memory = _encode(cfg, params, enc_frames)
+    positions = torch.arange(x.shape[1], device=x.device)
     x, caches, aux = _run_blocks(cfg, params["blocks"], x,
-                                 positions=positions,
+                                 positions=positions, memory=memory,
                                  collect_cache=collect_cache)
     return _logits(cfg, params, x), aux, caches
 
 
+def cross_kvs_from_memory(cfg: ModelConfig, params: dict,
+                          memory: torch.Tensor):
+    """Every decoder layer's cross-attention k and v from the encoder's
+    output [B, S_enc, D], bf16 [R, B, S_enc, KV, dh] each (with the
+    biases where ``qkv_bias``), for ``decode_step(cross_kvs=)``."""
+    mc = memory.to(L.COMPUTE_DTYPE)
+    out = {}
+    for name, bp in params["blocks"].items():
+        p = bp["cross"]
+        k = torch.einsum("bsd,rdhk->rbshk", mc, p["wk"].to(L.COMPUTE_DTYPE))
+        v = torch.einsum("bsd,rdhk->rbshk", mc, p["wv"].to(L.COMPUTE_DTYPE))
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(L.COMPUTE_DTYPE)[:, None, None]
+            v = v + p["bv"].to(L.COMPUTE_DTYPE)[:, None, None]
+        out[name] = (k, v)
+    return out
+
+
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
-                cache_len: int):
+                cache_len: int, cross_kvs=None):
     """One decode step. token [B, 1] int; ``cache_len`` is the current
-    prefix length (where attention writes this step's k/v; the SSM state
-    does not read it). Returns (logits [B, 1, V_pad], new caches);
-    ``caches`` is left as it was."""
+    prefix length (where attention writes this step's k/v and the token's
+    position; the SSM state does not read it; vlm: it counts the image
+    tokens too); encdec: ``cross_kvs`` from ``cross_kvs_from_memory``.
+    Returns (logits [B, 1, V_pad], new caches); ``caches`` is left as it
+    was."""
     _require_ported(cfg)
     x = _embed(params, token)
     positions = torch.full((1,), int(cache_len), dtype=torch.int32,
                            device=x.device)
     x, new_caches, _ = _run_blocks(cfg, params["blocks"], x,
                                    positions=positions, caches=caches,
-                                   cache_len=int(cache_len))
+                                   cache_len=int(cache_len),
+                                   cross_kvs=cross_kvs)
     return _logits(cfg, params, x), new_caches
 
 
@@ -292,3 +405,16 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
             out[f"l{i}"] = ((shape, torch.bfloat16, 2),
                             (shape, torch.bfloat16, 2))
     return out
+
+
+def cross_kv_struct(cfg: ModelConfig, batch: int):
+    """{"l{i}": ((shape, dtype, seq_axis), (shape, dtype, seq_axis))} of
+    the encdec decode's cross k/v: [R, B, enc_seq, KV, dh] bf16 each, in
+    ``cache_struct``'s convention; ``seq_axis`` is None, because their
+    length is the encoder's, fixed, and a server never grows them."""
+    _require_ported(cfg)
+    _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+    shape = (cfg.block_repeats, batch, cfg.enc_seq, kv, cfg.head_dim)
+    return {f"l{i}": ((shape, torch.bfloat16, None),
+                      (shape, torch.bfloat16, None))
+            for i in range(len(cfg.layer_pattern))}

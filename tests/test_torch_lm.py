@@ -324,16 +324,21 @@ def test_param_count_counts_the_matrices_of_init():
     assert total == tcfg.param_count() + r * (d + 2 * d_in) + d
 
 
-@pytest.mark.parametrize("arch", [a for a in TC.ARCH_IDS
-                                  if TC.ARCH_IDS[a] not in TC.PORTED])
-def test_get_config_of_unported_architecture_raises(arch):
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
+def test_get_config_of_unported_architecture_raises(arch, monkeypatch):
+    """Every architecture is ported; an id whose module is taken out of
+    ``PORTED`` is refused."""
+    assert set(TC.PORTED) == set(TC.ARCH_IDS.values())
+    monkeypatch.setattr(TC, "PORTED", tuple(
+        m for m in TC.PORTED if m != TC.ARCH_IDS[arch]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TC.get_config(arch, smoke=True)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b", "granite-3-2b",
                                   "qwen3-4b", "qwen2-moe-a2.7b",
-                                  "jamba-v0.1-52b", "deepseek-v2-236b"])
+                                  "jamba-v0.1-52b", "deepseek-v2-236b",
+                                  "whisper-small", "llava-next-34b"])
 def test_get_config_of_ported_architecture_matches_reference(arch):
     """The port's CONFIG and SMOKE equal the reference's field for field,
     and so do their parameter counts and layer patterns."""
@@ -350,17 +355,21 @@ def test_get_config_and_unported_family():
     assert TC.get_config("falcon_mamba_7b").name == "falcon-mamba-7b"
     with pytest.raises(KeyError):
         TC.get_config("no-such-model")
-    # the encdec and vlm families (whisper, llava) are not ported yet
+    # every family is ported; encdec has an encoder and a cross block on
+    # each decoder layer, vlm neither
+    assert set(TL.PORTED_FAMILIES) == {"ssm", "hybrid", "dense", "moe",
+                                       "encdec", "vlm"}
     for family in ("encdec", "vlm"):
         cfg = TC.ModelConfig(name=family, family=family, n_layers=2,
                              d_model=64, n_heads=4, n_kv=4, d_ff=128,
-                             vocab=256)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TL.init_params(cfg, torch.Generator(), CPU)
-        with pytest.raises(NotImplementedError, match=family):
-            TL.forward_lm(cfg, {}, torch.zeros((1, 2), dtype=torch.int64))
-        with pytest.raises(NotImplementedError, match=family):
-            TL.param_shapes(cfg)
+                             vocab=256, n_enc_layers=3 * (family == "encdec"))
+        shapes = TL.param_shapes(cfg)
+        cross = family == "encdec"
+        assert ("enc_blocks" in shapes) == cross
+        assert ("cross" in shapes["blocks"]["l0"]) == cross
+        if cross:
+            assert shapes["enc_blocks"]["l0"]["norm1"] == (3, 64)
+            assert shapes["blocks"]["l0"]["cross"]["wq"] == (2, 64, 4, 16)
     # the hybrid family and MLA attention are ported
     hybrid = TC.get_config("jamba-v0.1-52b", smoke=True)
     assert "hybrid" in TL.PORTED_FAMILIES

@@ -6,7 +6,7 @@ Phases, in the order they run (any failure raises, so the process exits
 non-zero with no "ok" line):
 
 1. device   — require CUDA; print the card's name and power limit
-              (nvidia-smi); build the eight CUDA kernels from
+              (nvidia-smi); build the nine CUDA kernels from
               ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, in
               parallel.
 2. main     — the paper's pipeline at the EC2 scale, through the user entry
@@ -335,6 +335,37 @@ non-zero with no "ok" line):
               then two gloo ranks run sharded DFEP and the sharded
               engine's SSSP on card 0 and on the CPU, which must give the
               same owner, rounds, state and counters.
+18. train   — training, after the kernels phase (run before the cpu
+              phase; every earlier model freed): qwen3-0.6b whole under
+              the TUNED profile (FA-2's backward, the additive mask,
+              block remat) through ``Trainer``: every parameter leaf's
+              gradient finite and non-zero on the first batch; TRAIN_STEPS
+              steps of TRAIN_BATCH × TRAIN_SEQ tokens from
+              ``SyntheticPipeline`` with a checkpoint every
+              TRAIN_CKPT_EVERY (warm median step, tokens/s, peak MiB,
+              first and last loss, grad_norm); a Trainer restarted from a
+              directory holding only the mid-run checkpoint must restore
+              the state saved there bit for bit and reach TRAIN_STEPS; one
+              step and one AdamW update under ``torch.profiler`` (the
+              casts' and AdamW's shares of the step's device time);
+              TRAIN_REPEAT_STEPS steps on one batch must lower its loss.
+              ``flash_fa2`` against autograd through the plain flash scan
+              at TRAIN_FLASH_SHAPE (FLASH_GRAD_REL). falcon-mamba-7b at
+              full width cut to TRAIN_SSM_LAYERS layers: every leaf's
+              gradient finite and non-zero, then TRAIN_SSM_STEPS steps of
+              TRAIN_SSM_BATCH × TRAIN_SSM_SEQ with the counters zeroed just
+              before and read just after (``selective_scan_bwd`` once a
+              layer a step, ``selective_scan`` in the forward and the
+              remat recompute); ``selective_scan_bwd`` held against
+              ``selective_scan_bwd_ref`` and autograd through
+              ``selective_scan_ref`` at TRAIN_SCAN_SHAPE with a random h0
+              and dh_last (each of the seven gradients within
+              SCAN_GRAD_REL), the forward's chunk states within SCAN_REL,
+              timed beside its bound. Then one float32-compute train step
+              of each of TRAIN_CPU_LAYERS on the card and on the CPU
+              (loss, gradients, and AdamW on the same gradients). The
+              kernels line gains the ``selective_scan_bwd`` row and the
+              ``selective_scan`` row its ``train_launches``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2546,15 +2577,17 @@ def _device_profile(fn) -> dict:
 
 @contextlib.contextmanager
 def _compute_dtype(dtype):
-    """Run the port's models with ``layers.COMPUTE_DTYPE`` set to
-    ``dtype`` (the weights are float32, so float32 casts none)."""
+    """Run the port's models with ``layers.COMPUTE_DTYPE`` (and the SSM
+    block's copy of it) set to ``dtype`` (the weights are float32, so
+    float32 casts none)."""
     from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
     real = L.COMPUTE_DTYPE
-    L.COMPUTE_DTYPE = dtype
+    L.COMPUTE_DTYPE = S.COMPUTE_DTYPE = dtype
     try:
         yield
     finally:
-        L.COMPUTE_DTYPE = real
+        L.COMPUTE_DTYPE = S.COMPUTE_DTYPE = real
 
 
 def _decode_vs_prefill(cfg, params, prompts, modality=None,
@@ -4221,6 +4254,487 @@ def _dist_cpu_equal() -> None:
     log({"phase": "cpu_equal.dist", "world": world, "wall_s": t})
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+#: The train phase: qwen3-0.6b whole under the TUNED profile, TRAIN_STEPS
+#: steps of TRAIN_BATCH × TRAIN_SEQ tokens from SyntheticPipeline (seed
+#: SEED) with a checkpoint every TRAIN_CKPT_EVERY, then TRAIN_REPEAT_STEPS
+#: steps on one repeated batch; falcon-mamba-7b at full width cut to
+#: TRAIN_SSM_LAYERS of its 64 layers (2,217,345,024 parameters: 33.0 GiB
+#: of float32 parameters, gradients and moments, where 64 layers would
+#: need 7.3 B and 109 GiB), TRAIN_SSM_STEPS steps of TRAIN_SSM_BATCH ×
+#: TRAIN_SSM_SEQ.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-0.6b", 10, 4, 1024
+TRAIN_CKPT_EVERY, TRAIN_REPEAT_STEPS = 5, 5
+TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS = "falcon-mamba-7b", 16
+TRAIN_SSM_STEPS, TRAIN_SSM_BATCH, TRAIN_SSM_SEQ = 3, 2, 512
+#: selective_scan_bwd held and timed at [B, S, Di, N]: falcon-mamba's
+#: width at the SSM training batch.
+TRAIN_SCAN_SHAPE = (2, 512, 8192, 16)
+#: flash_fa2 held against autograd through the plain flash scan at
+#: [B, H, S, dh] over TRAIN_FLASH_KV kv heads (qwen3-0.6b's attention at
+#: the training batch), causal, in key blocks of TRAIN_FLASH_BLOCK.
+TRAIN_FLASH_SHAPE, TRAIN_FLASH_KV = (4, 16, 1024, 128), 8
+TRAIN_FLASH_BLOCK = 256
+#: Card against CPU: one train step in float32 compute of each arch cut
+#: to its depth here, on [B, S] tokens.
+TRAIN_CPU_LAYERS = (("falcon-mamba-7b", 1), ("qwen3-0.6b", 2))
+TRAIN_CPU_TOKENS = (1, 64)
+# Tolerances, each with its reason:
+#  * the scan's backward kernel against its plain version (on the same
+#    chunk states) and against autograd through the plain loop, each
+#    gradient relative to its largest |value|: float32 on both sides; the
+#    kernel's decay is ex2.approx (2 ulp), its dB/dC sums run over 256
+#    blocks' atomics and its dA/dD over the batch, in other orders, over
+#    512 steps.
+SCAN_GRAD_REL = 1e-4
+#  * flash_fa2's output and gradients against autograd through the plain
+#    scan, float32 inputs, relative to each one's largest |value|: the same
+#    sums in another order (the scores scaled after the product, not q
+#    before; the probabilities recomputed from the log-sum-exp).
+FLASH_GRAD_REL = 1e-4
+#  * a float32-compute train step on the card against the CPU: the loss
+#    relative; gradients relative to each leaf's largest |value| (cuBLAS
+#    against the CPU's GEMMs, the scan's ex2 against exp); AdamW on the
+#    card from the CPU's gradients against the CPU step, relative to each
+#    leaf's largest |value| (the same elementwise float32 arithmetic).
+TRAIN_CPU_LOSS_REL, TRAIN_CPU_REL = 1e-5, 1e-4
+
+
+def _bad_grads(grads) -> list:
+    """The paths of a gradient tree's leaves that are not finite or are all
+    zero."""
+    bad = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif not bool(torch.isfinite(t).all()) or not bool((t != 0).any()):
+            bad.append(path)
+    walk(grads, "")
+    return bad
+
+
+def _trees_equal(a, b) -> bool:
+    """Bit for bit equal trees of dicts and (named) tuples of tensors."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_trees_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _rel_errs(got, want) -> dict:
+    """max |got - want| / max |want| of each pair of leaves, by path (the
+    trees nested dicts, tuples or tensors)."""
+    out = {}
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, (tuple, list)):
+            for i, (gi, wi) in enumerate(zip(g, w)):
+                walk(gi, wi, f"{path}/{i}")
+        else:
+            g, w = g.detach().float().cpu(), w.detach().float().cpu()
+            out[path] = float((g - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+    walk(got, want, "")
+    return out
+
+
+def _train_dense(tmp: str, dev: str = "cuda") -> dict:
+    """qwen3-0.6b whole under TUNED through ``Trainer``: every leaf's
+    gradient finite and non-zero on the first batch; TRAIN_STEPS steps
+    with a checkpoint every TRAIN_CKPT_EVERY (warm median step, tokens/s,
+    peak, losses); a Trainer restarted from a directory holding only step
+    TRAIN_CKPT_EVERY's checkpoint restores the state the first one saved
+    there bit for bit and reaches TRAIN_STEPS; one step and one AdamW
+    update under torch.profiler; then TRAIN_REPEAT_STEPS steps on one
+    batch must lower its loss."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.perf import BASELINE, TUNED, set_perf
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = O.AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS)
+    dcfg = DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED)
+
+    def tcfg(d):
+        return TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=d,
+                             ckpt_every=TRAIN_CKPT_EVERY,
+                             log_every=TRAIN_CKPT_EVERY)
+
+    set_perf(TUNED)
+    try:
+        tr = Trainer(cfg, ocfg, dcfg, tcfg(f"{tmp}/run"), device=dev)
+        batch = tr.pipeline.batch_at(0)
+        n_params = sum(t.numel() for t in O.tree_leaves(tr.params))
+        _, _, grads = TS.value_and_grad(cfg, tr.params, batch)
+        bad = _bad_grads(grads)
+        del grads
+        require(not bad, f"{TRAIN_ARCH}: gradients not finite or all zero: "
+                f"{bad}")
+        kept, save = {}, tr.ckpt.save
+
+        def keep(step, tree, blocking=False):
+            if step == TRAIN_CKPT_EVERY:    # the state that checkpoint holds
+                kept["tree"] = tree
+            save(step, tree, blocking)
+        tr.ckpt.save = keep
+        torch.cuda.reset_peak_memory_stats()
+        res, run_s = wall(tr.run)
+        peak = peak_mib()
+        warm = float(np.median(res["step_s"][1:]))
+        # a restart from a directory holding only the mid-run checkpoint
+        step_dir = f"step-{TRAIN_CKPT_EVERY:09d}"
+        shutil.copytree(f"{tmp}/run/{step_dir}", f"{tmp}/resume/{step_dir}",
+                        copy_function=os.link)
+        del tr
+        tr2 = Trainer(cfg, ocfg, dcfg, tcfg(f"{tmp}/resume"), device=dev)
+        restored = tr2.step == TRAIN_CKPT_EVERY and _trees_equal(
+            {"params": tr2.params, "opt": tr2.opt_state}, kept.pop("tree"))
+        require(restored, f"a Trainer restarted at step {TRAIN_CKPT_EVERY} "
+                "did not restore the saved state bit for bit")
+        res2 = tr2.run()
+        require(tr2.step == TRAIN_STEPS and bool(np.isfinite(
+            res2["losses"]).all()), "the restarted Trainer did not reach "
+            f"step {TRAIN_STEPS} with finite losses")
+        params, opt = tr2.params, tr2.opt_state
+        del tr2
+        prof = _device_profile(lambda: TS.train_step(cfg, ocfg, params, opt,
+                                                     batch))
+        _, _, grads = TS.value_and_grad(cfg, params, batch)
+        adamw = _device_profile(lambda: O.apply_updates(ocfg, params, grads,
+                                                        opt))
+        del grads
+        rcfg = O.AdamWConfig(warmup_steps=1, total_steps=TRAIN_REPEAT_STEPS)
+        opt = O.init_opt_state(params)
+        with torch.no_grad():
+            before = float(TS.lm_loss(cfg, params, batch)[1]["loss"])
+        for _ in range(TRAIN_REPEAT_STEPS):
+            params, opt, _ = TS.train_step(cfg, rcfg, params, opt, batch)
+        with torch.no_grad():
+            after = float(TS.lm_loss(cfg, params, batch)[1]["loss"])
+        del params, opt
+        require(after < before, f"{TRAIN_REPEAT_STEPS} steps on one batch "
+                f"did not lower its loss: {before} -> {after}")
+    finally:
+        set_perf(BASELINE)
+    out = {"arch": cfg.name, "params": n_params, "perf": "TUNED",
+           "steps": TRAIN_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "run_s": run_s, "step_s": res["step_s"],
+           "warm_median_step_s": warm,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / warm,
+           "peak_mib": peak, "first_loss": res["losses"][0],
+           "last_loss": res["losses"][-1], "losses": res["losses"],
+           "grad_norm": res["final_metrics"]["grad_norm"],
+           "resumed_at": TRAIN_CKPT_EVERY, "restored_bit_for_bit": restored,
+           "resumed_losses": res2["losses"],
+           "step_profile": prof, "adamw_profile": adamw,
+           "cast_share": prof["copy__ms"] / prof["device_ms"],
+           "adamw_share": adamw["device_ms"] / prof["device_ms"],
+           "repeat_batch_loss": [before, after]}
+    log({"phase": "train.dense", **out})
+    return out
+
+
+def _train_flash(dev: str = "cuda") -> dict:
+    """flash_fa2 against autograd through the plain flash scan (BASELINE)
+    at TRAIN_FLASH_SHAPE, float32 inputs: the output and dq, dk, dv each
+    within FLASH_GRAD_REL of its largest |value|; forward plus backward
+    timed for both."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.flash_vjp import flash_fa2
+
+    b, h, s, d = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((b, h, s, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, TRAIN_FLASH_KV, s, d), generator=gen,
+                        device=dev) for _ in range(2))
+    dout = torch.randn((b, h, s, d), generator=gen, device=dev)
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qq, kk, vv)
+        return {"out": out.detach(), **dict(zip(
+            ("dq", "dk", "dv"), torch.autograd.grad(out, (qq, kk, vv),
+                                                    dout)))}
+
+    def fa2(*a):
+        return flash_fa2(*a, True, TRAIN_FLASH_BLOCK)
+
+    def plain(*a):
+        return L.flash_attention(*a, causal=True, block=TRAIN_FLASH_BLOCK)
+
+    rel = _rel_errs(run(fa2), run(plain))
+    out = {"shape": list(TRAIN_FLASH_SHAPE), "kv_heads": TRAIN_FLASH_KV,
+           "block": TRAIN_FLASH_BLOCK, "rel_err": rel,
+           "fa2_fwd_bwd_ms": slow_ms(lambda: run(fa2), iters=5),
+           "plain_fwd_bwd_ms": slow_ms(lambda: run(plain), iters=5)}
+    log({"phase": "train.flash", **out})
+    require(all(e <= FLASH_GRAD_REL for e in rel.values()),
+            f"flash_fa2 against autograd through the plain scan: {rel}")
+    return out
+
+
+def _scan_bwd_bound(b: int, s: int, d: int, n: int):
+    """selective_scan_bwd's bound in ms, as ``(ms, by, terms)``: x, dt, B,
+    C, dy, A, D, the chunk states and dh_last read once, the seven
+    gradients written once (bytes), against the recompute's B·S·Di·N exps
+    at EX2_PER_CLOCK_PER_SM on every SM at the maximum SM clock."""
+    from repro_torch.kernels import ops
+    chunks = -(-s // ops.SCAN_CHUNK)
+    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n + 2 * d
+                  + b * chunks * d * n + 2 * b * d * n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elems = b * s * d * n
+    terms = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "exps_ms": 1e3 * elems / (EX2_PER_CLOCK_PER_SM * sms
+                                       * _sm_clock_hz()),
+             "bytes": nbytes, "exps": elems}
+    if terms["bytes_ms"] >= terms["exps_ms"]:
+        return terms["bytes_ms"], "bytes", terms
+    return terms["exps_ms"], "operations", terms
+
+
+def _scan_bwd_section(dev: str = "cuda") -> dict:
+    """The scan's forward with chunk states and ``selective_scan_bwd`` at
+    TRAIN_SCAN_SHAPE with a random h0 and dh_last (the JAX kernel tests'
+    distributions): the kernel's y, h_last and chunk states against
+    ``selective_scan_fwd_ref`` within SCAN_REL; the backward kernel
+    against ``selective_scan_bwd_ref`` on the plain chunk states, and
+    autograd through ``ops.selective_scan`` (both kernels) against
+    autograd through ``selective_scan_ref``, each of the seven gradients
+    within SCAN_GRAD_REL of its largest |value|; timed beside its bound,
+    the plain backward, and the forward with and without the states."""
+    from repro_torch.kernels import ops, ref
+
+    b, s, d, n = TRAIN_SCAN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x, bb, cc = randn(b, s, d), randn(b, s, n, scale=0.5), \
+        randn(b, s, n, scale=0.5)
+    dt = torch.nn.functional.softplus(randn(b, s, d))
+    a = torch.exp(randn(d, n, scale=0.3))
+    dsk, h0 = randn(d), randn(b, d, n)
+    dy, dhl = randn(b, s, d), randn(b, d, n)
+    ins = (x, dt, bb, cc, a, dsk, h0)
+    names = ("dx", "ddt", "db", "dc", "da", "dd", "dh0")
+
+    got_f = ops._scan_forward(*ins, True)
+    want_f = ref.selective_scan_fwd_ref(*ins, ops.SCAN_CHUNK)
+    torch.cuda.synchronize()
+    fwd_rel = _rel_errs(dict(zip(("y", "h_last", "hc"), got_f)),
+                        dict(zip(("y", "h_last", "hc"), want_f)))
+    hc = want_f[2]
+    got = ops.selective_scan_bwd(*ins[:6], hc, dy, dhl)
+    want = ref.selective_scan_bwd_ref(*ins[:6], hc, dy, dhl, ops.SCAN_CHUNK)
+    torch.cuda.synchronize()
+    plain_rel = _rel_errs(dict(zip(names, got)), dict(zip(names, want)))
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    def grads(fn):
+        live = [t.clone().requires_grad_(True) for t in ins]
+        y, h_last = fn(*live)
+        return dict(zip(names, torch.autograd.grad(
+            (y * dy).sum() + (h_last * dhl).sum(), live)))
+
+    auto_rel = _rel_errs(grads(ops.selective_scan),
+                         grads(ref.selective_scan_ref))
+    log({"phase": "kernels.selective_scan_bwd.check", "shape":
+         list(TRAIN_SCAN_SHAPE), "forward_rel": fwd_rel,
+         "vs_plain_rel": plain_rel, "vs_autograd_rel": auto_rel})
+    require(all(e <= SCAN_REL for e in fwd_rel.values()),
+            f"selective_scan with chunk states against the plain loop: "
+            f"{fwd_rel}")
+    require(all(e <= SCAN_GRAD_REL for e in plain_rel.values()),
+            f"selective_scan_bwd against its plain version: {plain_rel}")
+    require(all(e <= SCAN_GRAD_REL for e in auto_rel.values()),
+            f"autograd through selective_scan against the plain loop's: "
+            f"{auto_rel}")
+    bound, by, terms = _scan_bwd_bound(b, s, d, n)
+    out = {"shape": list(TRAIN_SCAN_SHAPE), "max_abs_err": max_abs,
+           "kernel_ms": device_ms(lambda: ops.selective_scan_bwd(
+               *ins[:6], hc, dy, dhl)),
+           "plain_ms": slow_ms(lambda: ref.selective_scan_bwd_ref(
+               *ins[:6], hc, dy, dhl, ops.SCAN_CHUNK)),
+           "forward_states_ms": device_ms(lambda: ops._scan_forward(
+               *ins, True)),
+           "forward_ms": device_ms(lambda: ops._scan_forward(*ins, False)),
+           "bound_ms": bound, "bound_by": by, "bound_terms": terms}
+    log({"phase": "kernels.selective_scan_bwd", **out})
+    return out
+
+
+def _train_ssm(dev: str = "cuda") -> dict:
+    """falcon-mamba-7b at full width cut to TRAIN_SSM_LAYERS: every leaf's
+    gradient finite and non-zero on the first batch (the SSM layers' only
+    through the scan's backward kernel); TRAIN_SSM_STEPS train steps with
+    the launch counters zeroed just before and read just after (the scan
+    and its backward must have run, the backward once a layer a step);
+    then the scan's kernels held and timed (``_scan_bwd_section``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get_config(TRAIN_SSM_ARCH),
+                              n_layers=TRAIN_SSM_LAYERS)
+    params = lm.init_params(cfg, torch.Generator(device=dev)
+                            .manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in O.tree_leaves(params))
+    pipe = SyntheticPipeline(cfg, DataConfig(TRAIN_SSM_BATCH, TRAIN_SSM_SEQ,
+                                             SEED), dev)
+    _, _, grads = TS.value_and_grad(cfg, params, pipe.batch_at(0))
+    bad = _bad_grads(grads)
+    del grads
+    require(not bad, f"{cfg.name} at {TRAIN_SSM_LAYERS} layers: gradients "
+            f"not finite or all zero: {bad}")
+    ocfg = O.AdamWConfig(warmup_steps=1, total_steps=TRAIN_SSM_STEPS)
+    opt = O.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    ops.reset_launches()
+    for step in range(TRAIN_SSM_STEPS):
+        (params, opt, m), t = wall(lambda: TS.train_step(
+            cfg, ocfg, params, opt, pipe.batch_at(step)))
+        step_s.append(t)
+        losses.append(float(m["loss"]))
+    launches = dict(ops.LAUNCHES)
+    peak = peak_mib()
+    del params, opt
+    torch.cuda.empty_cache()
+    require(launches["selective_scan_bwd"] == TRAIN_SSM_LAYERS
+            * TRAIN_SSM_STEPS and launches["selective_scan"] > 0,
+            f"the SSM train steps launched {launches}")
+    require(bool(np.isfinite(losses).all()), f"SSM losses {losses}")
+    out = {"arch": cfg.name, "layers": TRAIN_SSM_LAYERS, "params": n_params,
+           "batch": [TRAIN_SSM_BATCH, TRAIN_SSM_SEQ], "step_s": step_s,
+           "warm_median_step_s": float(np.median(step_s[1:])),
+           "tokens_per_s": TRAIN_SSM_BATCH * TRAIN_SSM_SEQ
+           / float(np.median(step_s[1:])), "losses": losses,
+           "peak_mib": peak, "launches": launches,
+           "selective_scan_bwd_per_step": launches["selective_scan_bwd"]
+           / TRAIN_SSM_STEPS}
+    log({"phase": "train.ssm", **out})
+    out["scan_bwd"] = _scan_bwd_section(dev)
+    return out
+
+
+def _train_cpu_equal(arch: str, n_layers: int, dev: str = "cuda") -> dict:
+    """One ``train_step`` of ``arch`` at full width cut to ``n_layers``, in
+    float32 compute, on TRAIN_CPU_TOKENS tokens from SyntheticPipeline,
+    with the same parameters on the card and on the CPU: the loss within
+    TRAIN_CPU_LOSS_REL and the gradients (``value_and_grad``) within
+    TRAIN_CPU_REL of each leaf's largest |value|; the card's
+    ``apply_updates`` on the CPU's gradients within TRAIN_CPU_REL of the
+    CPU step's parameters. The two steps' parameters are compared too and
+    logged: AdamW's first step is m̂ / (√v̂ + eps), so where a gradient
+    element is of the order of eps (1e-8) its last bits move the update,
+    and a leaf that starts at zero holds nothing but that update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = lm.params_from_reference(cfg, lm.params_to_numpy(cpu), dev)
+    batch = SyntheticPipeline(cfg, DataConfig(*TRAIN_CPU_TOKENS, SEED),
+                              "cpu").batch_at(0)
+    ocfg = O.AdamWConfig()
+    res = {}
+    with _compute_dtype(torch.float32):
+        for side, where, p in (("card", dev, card), ("cpu", "cpu", cpu)):
+            bt = {k: t.to(where) for k, t in batch.items()}
+            t0 = time.perf_counter()
+            new_p, _, m = TS.train_step(cfg, ocfg, p, O.init_opt_state(p), bt)
+            _, _, grads = TS.value_and_grad(cfg, p, bt)
+            torch.cuda.synchronize()
+            res[side] = (float(m["loss"]), grads, new_p,
+                         time.perf_counter() - t0)
+    (l_card, g_card, p_card, t_card), (l_cpu, g_cpu, p_cpu, t_cpu) = \
+        res["card"], res["cpu"]
+    on_cpu_grads = O.apply_updates(
+        ocfg, card, O.tree_map(lambda g: g.to(dev), g_cpu),
+        O.init_opt_state(card))[0]
+    g_rel, u_rel = _rel_errs(g_card, g_cpu), _rel_errs(on_cpu_grads, p_cpu)
+    p_rel = _rel_errs(p_card, p_cpu)
+    out = {"arch": cfg.name, "layers": n_layers,
+           "tokens": list(TRAIN_CPU_TOKENS), "loss_card": l_card,
+           "loss_cpu": l_cpu, "loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+           "grad_rel_max": max(g_rel.values()),
+           "grad_rel_worst": max(g_rel, key=g_rel.get),
+           "update_rel_max": max(u_rel.values()),
+           "update_rel_worst": max(u_rel, key=u_rel.get),
+           "step_param_rel": {k: v for k, v in p_rel.items()
+                              if v > TRAIN_CPU_REL},
+           "step_param_rel_max_elsewhere": max(
+               [v for v in p_rel.values() if v <= TRAIN_CPU_REL],
+               default=0.0),
+           "wall_s_cuda": t_card, "wall_s_cpu": t_cpu}
+    log({"phase": "train.cpu_equal", **out})
+    require(out["loss_rel"] <= TRAIN_CPU_LOSS_REL,
+            f"{arch}: train-step loss card {l_card} vs CPU {l_cpu}")
+    require(out["grad_rel_max"] <= TRAIN_CPU_REL,
+            f"{arch}: gradients card vs CPU: {g_rel}")
+    require(out["update_rel_max"] <= TRAIN_CPU_REL,
+            f"{arch}: AdamW on the card vs the CPU step: {u_rel}")
+    return out
+
+
+def phase_train(dev: str = "cuda") -> dict:
+    """The training path (phase 18): ``_train_dense``, ``_train_flash``,
+    ``_train_ssm`` (with the scan's backward kernel) and
+    ``_train_cpu_equal`` for each of TRAIN_CPU_LAYERS. Returns the
+    selective_scan_bwd row of the kernels line and the SSM path's
+    selective_scan launches."""
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, t_dense = wall(lambda: _train_dense(tmp, dev))
+    torch.cuda.empty_cache()
+    _, t_flash = wall(lambda: _train_flash(dev))
+    ssm, t_ssm = wall(lambda: _train_ssm(dev))
+    torch.cuda.empty_cache()
+    _, t_cpu = wall(lambda: [_train_cpu_equal(arch, n, dev)
+                             for arch, n in TRAIN_CPU_LAYERS])
+    log({"phase": "train", "wall_s": {"dense": t_dense, "flash": t_flash,
+                                      "ssm": t_ssm, "cpu_equal": t_cpu}})
+    sb = ssm["scan_bwd"]
+    row = {"name": "selective_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+           "replaces": "src/repro/models/ssm.py:82",
+           "replaces_note": "no TPU kernel: the reference differentiates "
+           "_selective_scan_chunked with JAX; its Pallas scan is "
+           "forward-only",
+           "launches": ssm["launches"]["selective_scan_bwd"],
+           "launches_per_step": ssm["selective_scan_bwd_per_step"],
+           "max_abs_err": sb["max_abs_err"], "ms": sb["kernel_ms"],
+           "plain_ms": sb["plain_ms"], "bound_ms": sb["bound_ms"],
+           "bound_by": sb["bound_by"], "library_ms": None,
+           "shape": sb["shape"], "forward_states_ms":
+           sb["forward_states_ms"], "forward_ms": sb["forward_ms"]}
+    return {"row": row,
+            "selective_scan_launches": ssm["launches"]["selective_scan"]}
+
+
 def main() -> int:
     card = phase_device()
     g, owner, plan, launches, main_results = phase_main()
@@ -4245,6 +4759,11 @@ def main() -> int:
                                 lm_launches, lm_inputs, serve, stream,
                                 dist_launches, moe_dfep_launches, hybrid)
     del lm_inputs, hybrid
+    train = phase_train()
+    for row in kernel_line["kernels"]:
+        if row["name"] == "selective_scan":
+            row["train_launches"] = train["selective_scan_launches"]
+    kernel_line["kernels"].append(train["row"])
     phase_cpu_equal()
     _dist_cpu_equal()
     for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH, LM_HYBRID_ARCH,

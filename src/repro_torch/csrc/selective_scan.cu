@@ -6,6 +6,9 @@
 //
 // x, dt, y [B, S, Di]; B_t, C_t [B, S, N]; A [Di, N]; D [Di]; h0, h_last
 // [B, Di, N]; all float32, row-major and contiguous. h0 may be null (zero).
+// hc, null in serving, receives the state at the start of every kChunk
+// steps, [B, ceil(S / kChunk), Di, N]: what selective_scan_bwd.cu
+// recomputes each chunk from in the backward.
 //
 // Replaces: src/repro/kernels/selective_scan.py::selective_scan (body
 // _kernel). The TPU kernel tiles Di into 128-lane blocks, pads S to a
@@ -36,7 +39,10 @@
 //     last chunk runs the same unrolled loop and only skips its y stores;
 //   * decode (S = 1) has its own kernel with no staging: a thread owns 4
 //     states, h0, A, B_t and C_t come in and h_last goes out in 16-byte
-//     accesses where the pointers allow.
+//     accesses where the pointers allow (a call that asks for the chunk
+//     states runs the prefill kernel, at any S);
+//   * with hc given, each thread stores its states before each chunk: one
+//     [B, Di, N] write every kChunk steps, 1/16 of the x, dt, y traffic.
 // The result stays within float32 rounding of the sequential plain
 // version: ex2.approx is within 2 ulp (and flushes results below 2^-126),
 // A2 adds one rounding to the exponent, and the two differ in the order of
@@ -163,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
         const float* __restrict__ bm, const float* __restrict__ cm,
         const float* __restrict__ a, const float* __restrict__ dskip,
         const float* __restrict__ h0, float* __restrict__ y,
-        float* __restrict__ h_last, int S, int Di) {
+        float* __restrict__ h_last, float* __restrict__ hc, int S, int Di) {
   constexpr int L = lanes_for(N);
   constexpr int P = N / L;
   constexpr int kCh = kThreads / L;  // channels per block
@@ -214,6 +220,9 @@ __global__ void __launch_bounds__(kThreads)
   if (chunks > 0) stage(0, 0);
   for (int ch = 0; ch < chunks; ++ch) {
     const int buf = ch & 1, t0 = ch * kChunk;
+    if (hc != nullptr && live)
+      store_run(hc + ((b * chunks + ch) * Di + d) * N + n0, h,
+                aligned16(hc));
     if (ch + 1 < chunks) {
       stage(buf ^ 1, t0 + kChunk);
       cp_async_wait<1>();
@@ -271,14 +280,14 @@ __global__ void __launch_bounds__(kStepThreads)
 template <int N>
 int launch_scan(const float* x, const float* dt, const float* bm,
                 const float* cm, const float* a, const float* dskip,
-                const float* h0, float* y, float* h_last, int B, int S,
-                int Di, cudaStream_t st) {
+                const float* h0, float* y, float* h_last, float* hc, int B,
+                int S, int Di, cudaStream_t st) {
   constexpr int kCh = kThreads / lanes_for(N);
   const long long blocks = static_cast<long long>(B) * ((Di + kCh - 1) / kCh);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   selective_scan_kernel<N>
       <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      x, dt, bm, cm, a, dskip, h0, y, h_last, S, Di);
+      x, dt, bm, cm, a, dskip, h0, y, h_last, hc, S, Di);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,14 +313,18 @@ extern "C" long long selective_scan_lanes(int N) {
   return N == 4 || N == 8 || N == 16 || N == 32 ? lanes_for(N) : -1;
 }
 
-// Plain C entry point (loaded with ctypes). h0 may be null. N must be 4, 8,
-// 16 or 32. S = 1 runs the decode kernel. Launches on `stream` and returns
-// cudaGetLastError() as an int (0 on success).
+// Steps between two saved chunk states (hc).
+extern "C" long long selective_scan_chunk() { return kChunk; }
+
+// Plain C entry point (loaded with ctypes). h0 and hc may be null. N must
+// be 4, 8, 16 or 32. S = 1 without hc runs the decode kernel. Launches on
+// `stream` and returns cudaGetLastError() as an int (0 on success).
 extern "C" int selective_scan_f32(const void* x, const void* dt,
                                   const void* bm, const void* cm,
                                   const void* a, const void* dskip,
                                   const void* h0, void* y, void* h_last,
-                                  int B, int S, int Di, int N, void* stream) {
+                                  void* hc, int B, int S, int Di, int N,
+                                  void* stream) {
   if (B <= 0 || Di <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -323,7 +336,8 @@ extern "C" int selective_scan_f32(const void* x, const void* dt,
   const float* hf = static_cast<const float*>(h0);
   float* yf = static_cast<float*>(y);
   float* lf = static_cast<float*>(h_last);
-  if (S == 1) {
+  float* cf_out = static_cast<float*>(hc);
+  if (S == 1 && cf_out == nullptr) {
     switch (N) {
       case 4: return launch_step<4>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, Di, st);
       case 8: return launch_step<8>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, Di, st);
@@ -333,10 +347,10 @@ extern "C" int selective_scan_f32(const void* x, const void* dt,
     }
   }
   switch (N) {
-    case 4: return launch_scan<4>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, S, Di, st);
-    case 8: return launch_scan<8>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, S, Di, st);
-    case 16: return launch_scan<16>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, S, Di, st);
-    case 32: return launch_scan<32>(xf, dtf, bf, cf, af, df, hf, yf, lf, B, S, Di, st);
+    case 4: return launch_scan<4>(xf, dtf, bf, cf, af, df, hf, yf, lf, cf_out, B, S, Di, st);
+    case 8: return launch_scan<8>(xf, dtf, bf, cf, af, df, hf, yf, lf, cf_out, B, S, Di, st);
+    case 16: return launch_scan<16>(xf, dtf, bf, cf, af, df, hf, yf, lf, cf_out, B, S, Di, st);
+    case 32: return launch_scan<32>(xf, dtf, bf, cf, af, df, hf, yf, lf, cf_out, B, S, Di, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

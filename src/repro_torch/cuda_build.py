@@ -48,7 +48,9 @@ SIGNATURES = {
     "minplus_sweep": ("minplus_sweep_f32", [_P] * 7
                       + [_I] * 3 + [ctypes.c_longlong, _I, _I, _I, _I,
                                     ctypes.c_float, _I, _P]),
-    "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
+    "selective_scan": ("selective_scan_f32", [_P] * 10 + [_I] * 4 + [_P]),
+    "selective_scan_bwd": ("selective_scan_bwd_f32",
+                           [_P] * 16 + [_I] * 4 + [_P]),
 }
 #: Layout queries a library exports beside its entry point, so that the
 #: kernel's source alone decides its tiles: symbol -> (library, argtypes),
@@ -58,6 +60,8 @@ QUERIES = {
     "lane_cumsum_scratch_words": ("lane_cumsum",
                                   [ctypes.c_longlong, _I, _I]),
     "selective_scan_lanes": ("selective_scan", [_I]),
+    "selective_scan_chunk": ("selective_scan", []),
+    "selective_scan_bwd_chunk": ("selective_scan_bwd", []),
 }
 
 _LOADED: dict[str, ctypes._CFuncPtr] = {}

@@ -36,8 +36,19 @@ with their plain PyTorch versions (``ref``).
     in registers (L, the lanes per channel, is the kernel's own rule:
     ``selective_scan_lanes``), one ex2 per state and step,
     chunks staged with ``cp.async`` into two buffers; decode (S = 1) has
-    its own unstaged kernel. Replaces
+    its own unstaged kernel. Under autograd it also writes the state at
+    the start of every SCAN_CHUNK steps. Replaces
     ``repro/kernels/selective_scan.py::selective_scan``.
+
+``selective_scan_bwd``
+    The scan's gradient: every SSM layer of a training step's backward.
+    CUDA C++ in ``csrc/selective_scan_bwd.cu``: a thread owns 4 states of
+    one channel, walks the chunks from the last, recomputes each chunk's
+    states from its saved one with the forward's own arithmetic, then its
+    steps backwards; dB/dC are reduced over a block's channels, then one
+    atomicAdd a block. Replaces no TPU kernel: the reference
+    differentiates its chunked scan (``repro/models/ssm.py``) with JAX's
+    autodiff, and its Pallas kernel is forward-only.
 
 Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; a mix raises, and there is no fallback from one to
@@ -58,14 +69,18 @@ from . import ref
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"lane_cumsum": 0, "frontier_min": 0, "minplus_sweep": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0}
 
 #: Vertex columns a frontier_min thread may own, widest first.
 MIN_VEC_WIDTHS = (8, 4, 1)
 _CUMSUM_DTYPES = {torch.int32: 0, torch.float32: 1}
 _MIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: State widths the scan kernel takes.
+#: State widths the scan kernels take.
 SCAN_STATES = (4, 8, 16, 32)
+#: Steps between two chunk states the scan's forward keeps for its
+#: backward (``kChunk`` of ``csrc/selective_scan.cu`` and
+#: ``csrc/selective_scan_bwd.cu``, checked against both on the card).
+SCAN_CHUNK = 16
 #: Rows of state one minplus_sweep tile block owns, smallest first: a
 #: layout takes the largest whose tiles hold at most MINPLUS_TILE_EDGES
 #: half-edges on average (``csrc/minplus_sweep.cu`` takes up to 2048).
@@ -365,6 +380,84 @@ def minplus_sweep(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return out
 
 
+def _scan_shapes(x, a) -> dict:
+    """The shape each scan argument must have, by name."""
+    bsz, s, d_in = (int(n) for n in x.shape)
+    n = int(a.shape[1])
+    return {"x": (bsz, s, d_in), "dt": (bsz, s, d_in), "b": (bsz, s, n),
+            "c": (bsz, s, n), "a": (d_in, n), "d_skip": (d_in,),
+            "h0": (bsz, d_in, n)}
+
+
+def _scan_chunks(s: int) -> int:
+    return -(-s // SCAN_CHUNK)
+
+
+def _check_scan_chunk(symbol: str) -> None:
+    """Raise unless the kernel's chunk of saved states is SCAN_CHUNK."""
+    got = cuda_build.query(symbol)()
+    if got != SCAN_CHUNK:
+        raise RuntimeError(f"{symbol}() = {got}, but the wrapper lays the "
+                           f"chunk states out by SCAN_CHUNK = {SCAN_CHUNK}")
+
+
+def _scan_forward(x, dt, b, c, a, d_skip, h0, states: bool):
+    """(y, h_last, chunk states [B, ceil(S / SCAN_CHUNK), Di, N] or None
+    when not ``states``): the kernel on the card, the plain loop on the
+    CPU."""
+    if not _on_card(x, dt, b, c, a, d_skip, *(() if h0 is None else (h0,))):
+        if states:
+            return ref.selective_scan_fwd_ref(x, dt, b, c, a, d_skip, h0,
+                                              SCAN_CHUNK)
+        return (*ref.selective_scan_ref(x, dt, b, c, a, d_skip, h0), None)
+    bsz, s, d_in = (int(n) for n in x.shape)
+    n = int(a.shape[1])
+    if n not in SCAN_STATES:
+        raise ValueError(f"selective_scan: state width {n} is not one of "
+                         f"{SCAN_STATES}")
+    args = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
+    for t, (name, shape) in zip(args, _scan_shapes(x, a).items()):
+        _check(t, name, torch.float32, shape)
+    y = torch.empty_like(x)
+    h_last = torch.empty((bsz, d_in, n), dtype=torch.float32,
+                         device=x.device)
+    hc = None
+    if states:
+        _check_scan_chunk("selective_scan_chunk")
+        hc = torch.empty((bsz, _scan_chunks(s), d_in, n),
+                         dtype=torch.float32, device=x.device)
+    rc = cuda_build.entry("selective_scan")(
+        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
+        d_skip.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_last.data_ptr(), None if hc is None else hc.data_ptr(),
+        bsz, s, d_in, n, _stream())
+    _launched("selective_scan", rc)
+    return y, h_last, hc
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """``selective_scan`` under autograd: the forward saves the chunk
+    states, the backward is :func:`selective_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        y, h_last, hc = _scan_forward(x, dt, b, c, a, d_skip, h0, True)
+        ctx.save_for_backward(x, dt, b, c, a, d_skip, hc)
+        ctx.has_h0 = h0 is not None
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, b, c, a, d_skip, hc = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        *grads, dh0 = selective_scan_bwd(x, dt, b, c, a, d_skip, hc, dy,
+                                         dh_last)
+        return (*grads, dh0 if ctx.has_h0 else None)
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
                    h0: torch.Tensor | None = None
@@ -374,7 +467,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     a [Di, N], d_skip [Di], h0 [B, Di, N] or None (zero), all float32 and
     contiguous -> (y [B, S, Di], h_last [B, Di, N]). CUDA tensors launch the
     kernel (N in :data:`SCAN_STATES`); CPU tensors run
-    :func:`ref.selective_scan_ref`."""
+    :func:`ref.selective_scan_ref`.
+
+    While autograd records (grad enabled and an input requiring grad) it
+    is differentiable: the forward also keeps the state at the start of
+    every SCAN_CHUNK steps (the kernel writes them; on the CPU
+    :func:`ref.selective_scan_fwd_ref`), and the backward is
+    :func:`selective_scan_bwd` from them, the hand-written kernel on the
+    card. A kernel that fails to build or launch raises; nothing falls
+    back to the plain version."""
     args = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
     for t in args:
         _dtype_code(t, {torch.float32: 0}, "selective_scan")
@@ -382,29 +483,54 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"selective_scan: expected x [B, S, Di] and a "
                          f"[Di, N], got {tuple(x.shape)} and "
                          f"{tuple(a.shape)}")
-    bsz, s, d_in = (int(n) for n in x.shape)
-    n = int(a.shape[1])
-    shapes = {"x": (bsz, s, d_in), "dt": (bsz, s, d_in), "b": (bsz, s, n),
-              "c": (bsz, s, n), "a": (d_in, n), "d_skip": (d_in,),
-              "h0": (bsz, d_in, n)}
     for t, (name, shape) in zip((x, dt, b, c, a, d_skip, h0),
-                                shapes.items()):
+                                _scan_shapes(x, a).items()):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"selective_scan: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    if not _on_card(*args):
-        return ref.selective_scan_ref(x, dt, b, c, a, d_skip, h0)
-    if n not in SCAN_STATES:
-        raise ValueError(f"selective_scan: state width {n} is not one of "
-                         f"{SCAN_STATES}")
-    for t, (name, shape) in zip(args, shapes.items()):
-        _check(t, name, torch.float32, shape)
-    y = torch.empty_like(x)
-    h_last = torch.empty((bsz, d_in, n), dtype=torch.float32,
-                         device=x.device)
-    rc = cuda_build.entry("selective_scan")(
-        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
-        d_skip.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), h_last.data_ptr(), bsz, s, d_in, n, _stream())
-    _launched("selective_scan", rc)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(x, dt, b, c, a, d_skip, h0)
+    y, h_last, _ = _scan_forward(x, dt, b, c, a, d_skip, h0, False)
     return y, h_last
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor,
+                       d_skip: torch.Tensor, hc: torch.Tensor,
+                       dy: torch.Tensor, dh_last: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`selective_scan` from its inputs, its chunk
+    states ``hc`` [B, ceil(S / SCAN_CHUNK), Di, N], ``dy`` [B, S, Di] and
+    ``dh_last`` [B, Di, N] (None: zero), all float32 and contiguous ->
+    (dx, ddt, db, dc, da, dd, dh0), shaped as x, dt, b, c, a, d_skip and
+    h0. CUDA tensors launch ``csrc/selective_scan_bwd.cu``; CPU tensors
+    run :func:`ref.selective_scan_bwd_ref`."""
+    extra = (hc, dy) + (() if dh_last is None else (dh_last,))
+    if not _on_card(x, dt, b, c, a, d_skip, *extra):
+        return ref.selective_scan_bwd_ref(x, dt, b, c, a, d_skip, hc, dy,
+                                          dh_last, SCAN_CHUNK)
+    bsz, s, d_in = (int(n) for n in x.shape)
+    n = int(a.shape[1])
+    if n not in SCAN_STATES:
+        raise ValueError(f"selective_scan_bwd: state width {n} is not one "
+                         f"of {SCAN_STATES}")
+    shapes = _scan_shapes(x, a)
+    for t, (name, shape) in zip((x, dt, b, c, a, d_skip), shapes.items()):
+        _check(t, name, torch.float32, shape)
+    _check(hc, "hc", torch.float32, (bsz, _scan_chunks(s), d_in, n))
+    _check(dy, "dy", torch.float32, shapes["x"])
+    if dh_last is not None:
+        _check(dh_last, "dh_last", torch.float32, shapes["h0"])
+    _check_scan_chunk("selective_scan_bwd_chunk")
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    da, dd = torch.zeros_like(a), torch.zeros_like(d_skip)
+    dh0 = torch.empty(shapes["h0"], dtype=torch.float32, device=x.device)
+    rc = cuda_build.entry("selective_scan_bwd")(
+        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
+        d_skip.data_ptr(), hc.data_ptr(), dy.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+        dd.data_ptr(), dh0.data_ptr(), bsz, s, d_in, n, _stream())
+    _launched("selective_scan_bwd", rc)
+    return dx, ddt, db, dc, da, dd, dh0

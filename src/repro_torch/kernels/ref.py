@@ -58,11 +58,27 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     a [Di, N] (positive); d_skip [Di]; h0 [B, Di, N] (zero when None), all
     float32. Returns (y [B, S, Di], h_last [B, Di, N]).
     """
+    y, h, _ = selective_scan_fwd_ref(x, dt, b, c, a, d_skip, h0)
+    return y, h
+
+
+def selective_scan_fwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           b: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
+                           d_skip: torch.Tensor,
+                           h0: torch.Tensor | None = None, chunk: int = 16
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """:func:`selective_scan_ref` that also returns the state at the start
+    of every ``chunk`` steps, [B, ceil(S / chunk), Di, N]: the chunk states
+    the scan's backward recomputes from (``selective_scan`` saves them
+    under autograd). Returns (y, h_last, chunk states)."""
     bsz, s, d_in = x.shape
     h = (torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
                      device=x.device) if h0 is None else h0)
-    ys = []
+    ys, states = [], []
     for t in range(s):
+        if t % chunk == 0:
+            states.append(h)
         dt_t, x_t = dt[:, t], x[:, t]
         decay = torch.exp(-dt_t[:, :, None] * a[None])
         inject = (dt_t * x_t)[:, :, None] * b[:, t, None, :]
@@ -70,4 +86,52 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         ys.append(torch.sum(h * c[:, t, None, :], dim=-1)
                   + x_t * d_skip[None])
     y = torch.stack(ys, dim=1) if ys else torch.empty_like(x)
-    return y, h
+    hc = (torch.stack(states, dim=1) if states else
+          h.new_zeros((bsz, 0) + tuple(h.shape[1:])))
+    return y, h, hc
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           b: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
+                           d_skip: torch.Tensor, hc: torch.Tensor,
+                           dy: torch.Tensor,
+                           dh_last: torch.Tensor | None = None,
+                           chunk: int = 16) -> tuple[torch.Tensor, ...]:
+    """Plain version of ``selective_scan_bwd``: the gradients of
+    :func:`selective_scan_ref` from the chunk states ``hc`` (as
+    :func:`selective_scan_fwd_ref` returns them), ``dy`` [B, S, Di] and
+    ``dh_last`` [B, Di, N] (zero when None). Walks the chunks from the
+    last, recomputing each chunk's states from its saved state, then its
+    steps backwards with ``g_t = dy_t ⊗ C_t + a_{t+1} ⊙ g_{t+1}``.
+    Returns (dx, ddt, db, dc, da, dd, dh0)."""
+    bsz, s, d_in = x.shape
+    carry = (torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
+                         device=x.device) if dh_last is None
+             else dh_last.clone())
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(a)
+    for ch in reversed(range(hc.shape[1])):
+        t0, t1 = ch * chunk, min(s, ch * chunk + chunk)
+        hs, decays = [hc[:, ch]], []
+        for t in range(t0, t1):
+            dt_t, x_t = dt[:, t], x[:, t]
+            decays.append(torch.exp(-dt_t[:, :, None] * a[None]))
+            inject = (dt_t * x_t)[:, :, None] * b[:, t, None, :]
+            hs.append(decays[-1] * hs[-1] + inject)
+        for t in reversed(range(t0, t1)):
+            k = t - t0
+            decay, h_prev, h_t = decays[k], hs[k], hs[k + 1]
+            dt_t, x_t, dy_t = dt[:, t], x[:, t], dy[:, t]
+            g = dy_t[:, :, None] * c[:, t, None, :] + carry     # [B, Di, N]
+            dc[:, t] = torch.sum(dy_t[:, :, None] * h_t, dim=1)
+            db[:, t] = torch.sum(g * (dt_t * x_t)[:, :, None], dim=1)
+            dx[:, t] = (torch.sum(g * b[:, t, None, :], dim=-1) * dt_t
+                        + d_skip[None] * dy_t)
+            ddt[:, t] = torch.sum(g * (x_t[:, :, None] * b[:, t, None, :]
+                                       - a[None] * decay * h_prev), dim=-1)
+            da = da - torch.sum(g * dt_t[:, :, None] * decay * h_prev,
+                                dim=0)
+            carry = decay * g
+    dd = torch.sum(dy * x, dim=(0, 1))
+    return dx, ddt, db, dc, da, dd, carry

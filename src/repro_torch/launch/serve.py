@@ -11,9 +11,12 @@ whisper-small (encdec: the encoder gets zero bf16 frames [B, enc_seq, D],
 as the JAX launcher feeds it) and llava-next-34b (vlm: text only, no image
 embeddings, as the JAX launcher runs it); ``--smoke`` picks the reduced
 config. Runs on the card unless
-``--device cpu``. One device: no ``--mesh``, and no ``--perf`` (the JAX
-launcher's tuned settings are settings of its XLA scan, flash VJP and
-dry-run specs, which this path does not have).
+``--device cpu``. One device: no ``--mesh``, and no ``--perf``: the
+``TUNED`` profile's serving settings (bfloat16 weights replicated over
+data parallelism) are read by launch tooling the port does not have yet;
+its attention settings (``models/perf.py``) apply to any forward run
+under ``perf.set_perf(TUNED)``, and ``launch.train --perf`` trains under
+it.
 """
 from __future__ import annotations
 

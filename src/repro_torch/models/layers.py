@@ -20,6 +20,9 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .flash_vjp import flash_fa2
+from .perf import get_perf
+
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
@@ -145,7 +148,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, KV, Sk, dh]; returns [B, H, Sq, dv] in q's dtype. Scans KV blocks
     (``n_blk = max(Sk // block, 1)`` of ``Sk // n_blk`` keys) carrying the
     running (max, sum, acc), in the reference's order, so no [Sq, Sk]
-    score matrix is materialised."""
+    score matrix is materialised.
+
+    Under the thread's ``perf.get_perf()``: ``flash_custom_vjp`` with
+    ``q_offset`` 0 goes to ``flash_vjp.flash_fa2`` with ``block`` if it
+    splits Sk, else one block of Sk keys (the reference's rule);
+    ``additive_mask`` adds a -inf causal bias instead of selecting;
+    ``pv_bf16`` rounds the probabilities and values to bfloat16 for the
+    PV product, whose sums stay float32."""
+    perf = get_perf()
+    if perf.flash_custom_vjp and isinstance(q_offset, int) \
+            and q_offset == 0:
+        sk = k.shape[2]
+        return flash_fa2(q, k, v, causal, block if sk % block == 0 else sk)
+
     b, hq, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -168,12 +184,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             k_pos = i * block + torch.arange(block, device=dev)
             mask = q_pos[:, None] >= k_pos[None, :]              # [Sq, blk]
-            s = torch.where(mask, s, float("-inf"))
+            if perf.additive_mask:
+                s = s + torch.where(mask, torch.zeros((), device=dev),
+                                    float("-inf"))
+            else:
+                s = torch.where(mask, s, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgqc,bkcd->bkgqd", p, vb[:, :, i])
+        vblk = vb[:, :, i]
+        if perf.pv_bf16:   # bf16 operands; their products and sums float32
+            p, vblk = (t.to(COMPUTE_DTYPE).float() for t in (p, vblk))
+        pv = torch.einsum("bkgqc,bkcd->bkgqd", p, vblk)
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / l.clamp(min=1e-30)[..., None]

@@ -30,15 +30,19 @@ to lower, and each layer's selective scan is one kernel launch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.graph import resolve_device
 from . import layers as L
 from . import ssm as S
+from .perf import get_perf, set_perf
 
 #: Families ``forward_lm``, ``decode_step`` and ``init_params`` run.
 PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe", "encdec", "vlm")
@@ -188,6 +192,28 @@ def params_to_numpy(params) -> dict[str, Any]:
     return params.detach().cpu().numpy()
 
 
+def opt_state_from_reference(cfg: ModelConfig, np_opt, device=None):
+    """The reference's ``OptState(step, m, v)`` (numpy leaves, or anything
+    ``np.asarray`` takes) as the port's ``train.optimizer.OptState`` on
+    ``device``: the step an int32 scalar, the moments float32 in the
+    layout of ``params_from_reference``."""
+    from ..train.optimizer import OptState
+    step, m, v = np_opt
+    dev = resolve_device(device)
+    return OptState(torch.tensor(np.asarray(step, dtype=np.int32),
+                                 device=dev),
+                    params_from_reference(cfg, m, dev),
+                    params_from_reference(cfg, v, dev))
+
+
+def opt_state_to_numpy(opt) -> tuple:
+    """The port's ``OptState`` as (step, m, v) of numpy arrays, the
+    reference's ``OptState`` fields in order."""
+    step, m, v = opt
+    return (step.detach().cpu().numpy(), params_to_numpy(m),
+            params_to_numpy(v))
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
@@ -240,36 +266,103 @@ def _apply_layer(cfg: ModelConfig, kind: str, pos: int, p: dict,
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
                 positions, caches=None, cache_len=None, memory=None,
                 cross_kvs=None, causal: bool = True, encoder: bool = False,
-                collect_cache: bool = False):
+                collect_cache: bool = False, remat: bool = False):
     """The repeated blocks in order (as many repeats as ``blocks``' leaves
     stack: ``cfg.block_repeats``, or ``n_enc_layers`` for the encoder,
     whose pattern is one attention layer). ``caches`` and ``cross_kvs``
     are indexed per repeat. Returns (x, new caches | None, aux: the MoE
     losses summed in layer order, float32), the caches stacked [R, ...] as
-    the reference's scan stacks them."""
+    the reference's scan stacks them.
+
+    Under ``remat``, while autograd records (grad enabled and a block
+    parameter or ``x`` requiring grad), each repeat runs inside
+    ``torch.utils.checkpoint`` as the reference's scan body runs inside
+    ``jax.checkpoint``: its activations are recomputed in the backward,
+    all of them under ``perf`` ``remat_policy="block"``, all but its 2-D
+    matrix products' outputs under ``"dots"`` (:func:`_dots_saveable`).
+    The recompute runs under the profile the forward ran under, whichever
+    thread autograd runs it on (the profile is thread-local, and a CUDA
+    backward runs on autograd's device thread)."""
     pattern = ("attn",) if encoder else cfg.layer_pattern
     keep = caches is not None or collect_cache
-    per_layer: dict[str, list] = {f"l{i}": [] for i in range(len(pattern))}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(_repeats(blocks)):
+
+    def repeat(r, x):
+        new, auxes = [], []
         for i, kind in enumerate(pattern):
             name = f"l{i}"
-            p = _index(blocks[name], r)
             c = None if caches is None else tuple(t[r] for t in caches[name])
             ck = (None if cross_kvs is None
                   else tuple(t[r] for t in cross_kvs[name]))
-            x, nc, a = _apply_layer(cfg, kind, i, p, x, positions=positions,
-                                    cache=c, cache_len=cache_len,
-                                    memory=memory, cross_kv=ck,
-                                    causal=causal, encoder=encoder)
+            x, nc, a = _apply_layer(cfg, kind, i, _index(blocks[name], r), x,
+                                    positions=positions, cache=c,
+                                    cache_len=cache_len, memory=memory,
+                                    cross_kv=ck, causal=causal,
+                                    encoder=encoder)
+            new.append(nc)
             if a is not None:
-                aux = aux + a
-            if keep:
-                per_layer[name].append(nc)
+                auxes.append(a)
+        return x, new, auxes
+
+    if remat and torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in _leaves(blocks))):
+        policy = get_perf().remat_policy
+        if policy not in ("block", "dots"):
+            raise ValueError(f"remat_policy {policy!r}: expected 'block' "
+                             "or 'dots'")
+        context = {} if policy == "block" else {
+            "context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _dots_saveable)}
+        perf = get_perf()
+
+        def pinned(r, x):
+            # the recompute runs in the backward, on the CUDA device's
+            # autograd thread, whose profile is its own: pin the forward's
+            prev = get_perf()
+            set_perf(perf)
+            try:
+                return repeat(r, x)
+            finally:
+                set_perf(prev)
+
+        def run(r, x):
+            return checkpoint(pinned, r, x, use_reentrant=False, **context)
+    else:
+        run = repeat
+
+    per_layer: dict[str, list] = {f"l{i}": [] for i in range(len(pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(_repeats(blocks)):
+        x, new, auxes = run(r, x)
+        for a in auxes:     # in layer order, as the reference sums them
+            aux = aux + a
+        if keep:
+            for i, nc in enumerate(new):
+                per_layer[f"l{i}"].append(nc)
     if not keep:
         return x, None, aux
     return x, {name: tuple(torch.stack(parts) for parts in zip(*layer))
                for name, layer in per_layer.items()}, aux
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``, the
+    counterpart of JAX's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of 2-D matrix products (``mm``, ``addmm``, and ``bmm`` over a
+    batch of one, which is how ``torch.einsum`` runs a product with no
+    batch dimension), recompute everything else."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op == aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _repeats(tree) -> int:
@@ -313,15 +406,17 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                img_embeds: torch.Tensor | None = None,
                enc_frames: torch.Tensor | None = None,
                memory: torch.Tensor | None = None,
-               collect_cache: bool = False):
-    """Full-sequence forward (prefill). tokens [B, S_text] int; vlm:
+               collect_cache: bool = False, remat: bool = True):
+    """Full-sequence forward (train / prefill). tokens [B, S_text] int; vlm:
     ``img_embeds`` [B, N_img, D] prepended (cast to the compute dtype),
     so the sequence and its positions span N_img + S_text; encdec:
     ``enc_frames`` [B, S_enc, D] through the encoder as the cross memory,
     or that memory itself (``_encode``'s output) as ``memory``.
     Returns (logits [B, S, V_pad] bf16, aux (the MoE load-balance losses
     summed over layers; 0.0 without MoE), caches if ``collect_cache`` else
-    None)."""
+    None). ``remat`` (the reference's default) checkpoints each decoder
+    block repeat while autograd records, never the encoder (see
+    ``_run_blocks``); without autograd it changes nothing."""
     _require_ported(cfg)
     x = _embed(params, tokens)
     if img_embeds is not None:
@@ -333,7 +428,7 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     positions = torch.arange(x.shape[1], device=x.device)
     x, caches, aux = _run_blocks(cfg, params["blocks"], x,
                                  positions=positions, memory=memory,
-                                 collect_cache=collect_cache)
+                                 collect_cache=collect_cache, remat=remat)
     return _logits(cfg, params, x), aux, caches
 
 

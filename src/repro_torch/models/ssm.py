@@ -1,12 +1,17 @@
 """Mamba-1 selective-SSM block, the falcon-mamba mixer (the counterpart of
 ``repro/models/ssm.py``).
 
-Prefill and decode both run the selective scan through
+Training, prefill and decode all run the selective scan through
 ``kernels.ops.selective_scan``, the hand-written CUDA kernel on the card:
 prefill from a zero state, keeping the final state for the cache; decode
 with S = 1 from the cached state, the same recurrence as the reference's
-O(1) decode update. Matmuls run in bfloat16 on float32 parameters, each
-weight cast at its use; the scan runs in float32.
+O(1) decode update. Under autograd the scan is differentiable: its
+forward keeps a state every ``ops.SCAN_CHUNK`` steps and its backward is
+the hand-written ``selective_scan_bwd`` kernel (on the CPU, both run
+their plain versions), where the reference differentiates its chunked
+associative scan. Matmuls run in bfloat16 on float32 parameters, each
+weight cast at its use; the scan runs in float32 (``perf.ssm_bf16``
+raises: the kernels have no bfloat16 form).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, SsmConfig
 from ..kernels import ops
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, _init, silu
+from .perf import get_perf
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[SsmConfig, int, int]:
@@ -108,6 +114,9 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     a sequence (decode); None starts one (prefill). Returns (y [B, S, D] in
     x's dtype, (new conv_state, new h)).
     """
+    if get_perf().ssm_bf16:
+        raise ValueError("perf ssm_bf16: the selective scan kernels run in "
+                         "float32 only")
     s_cfg, d_in, dt_rank = ssm_dims(cfg)
     n = s_cfg.d_state
     xz = x.to(COMPUTE_DTYPE) @ p["in_proj"].to(COMPUTE_DTYPE)   # [B,S,2Di]

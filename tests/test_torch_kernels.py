@@ -166,7 +166,8 @@ def test_library_path_keyed_by_source():
     paths = {n: cuda_build.library_path(n) for n in cuda_build.SIGNATURES}
     assert set(paths) == {"segment_reduce", "masked_update", "gspmm",
                           "replica_exchange", "lane_cumsum", "frontier_min",
-                          "minplus_sweep", "selective_scan"}
+                          "minplus_sweep", "selective_scan",
+                          "selective_scan_bwd"}
     for name, path in paths.items():
         assert path.parent == cuda_build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"

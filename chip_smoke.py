@@ -275,7 +275,9 @@ non-zero with no "ok" line):
               masked_update, the glob-form update that closes the dist
               path's exchanges, scalar and at the GNN state's F=8 on the
               main plan, and at a world-DIST_BLOCK_WORLD rank's block
-              ([K/2, Vmax] and [K/2, Vmax, SERVE_LANES]; timed beside its
+              ([K/2, Vmax], [K/2, Vmax, 3], [K/2, Vmax, 8] and [K/2, Vmax,
+              SERVE_LANES], each exact, and F = 1, 3, 8 at an odd,
+              unaligned [3, Vmax - 1 or - 2]; timed beside its
               bound, its row's launches the dist phase's); exchange,
               the whole replica exchange, at F = 1 and 8, min/add/max, on
               the main path's plan, the patched one, a hub in all K
@@ -359,7 +361,8 @@ non-zero with no "ok" line):
               remat recompute); ``selective_scan_bwd`` held against
               ``selective_scan_bwd_ref`` and autograd through
               ``selective_scan_ref`` at TRAIN_SCAN_SHAPE with a random h0
-              and dh_last (each of the seven gradients within
+              and dh_last, and against ``selective_scan_bwd_ref`` at
+              SCAN_BWD_RAGGED (each of the seven gradients within
               SCAN_GRAD_REL), the forward's chunk states within SCAN_REL,
               timed beside its bound. Then one float32-compute train step
               of each of TRAIN_CPU_LAYERS on the card and on the CPU
@@ -3821,11 +3824,15 @@ def _selective_scan_section(captured, hybrid, gen, times) -> dict:
 def _masked_update_block(Kn, block, gen, times) -> dict:
     """masked_update at a rank's block of the main plan, the dist path's
     shapes: [K/w, Vmax] against a [V] frontier and [K/w, Vmax,
-    SERVE_LANES] against [V, SERVE_LANES] (min, some states +inf), exact
-    against the plain version, timed beside its bound."""
+    SERVE_LANES] against [V, SERVE_LANES], and at F = 3 (scalar rows) and
+    F = 8 (the GNN programs' width) between them (min, some states +inf),
+    each exact against the plain version, timed beside its bound; then at
+    F = 1, 3 and 8 on an odd slot count with the state not 16-byte
+    aligned, exact (the kernel's scalar forms)."""
     dev = block.device
     out = {}
-    for label, tail in (("f1", ()), ("lanes", (SERVE_LANES,))):
+    for label, tail in (("f1", ()), ("f3", (3,)), ("f8", (8,)),
+                        ("lanes", (SERVE_LANES,))):
         shape = (block.k, block.v_max) + tail
         state = torch.rand(shape, generator=gen, device=dev) * 30
         state = torch.where(torch.rand(shape, generator=gen, device=dev)
@@ -3844,8 +3851,26 @@ def _masked_update_block(Kn, block, gen, times) -> dict:
                                                  else 1)
         out[label] = dict(t, shape=list(shape), max_abs_err=_max_abs(got,
                                                                      want))
+    # where the vector forms do not apply: up to three partitions of an
+    # odd number of slots (a ragged F = 1 tail), the state one float into
+    # its buffer
+    k, v = min(3, block.k), block.v_max - 1 - block.v_max % 2
+    idx = (block.local2global[:k, :v].contiguous(),
+           block.vmask[:k, :v].contiguous(),
+           block.replicated[:k, :v].contiguous())
+    for f in (1, 3, 8):
+        tail = (f,) if f > 1 else ()
+        buf = torch.rand(k * v * f + 1, generator=gen, device=dev) * 30
+        state = buf[1:].view((k, v) + tail)
+        glob = torch.rand((block.n_vertices,) + tail, generator=gen,
+                          device=dev) * 30
+        got = Kn.masked_update(state, glob, *idx, "min")
+        torch.cuda.synchronize()
+        require(torch.equal(got, Kn.masked_update_ref(state, glob, *idx,
+                                                      "min")),
+                f"masked_update at an unaligned [{k}, {v}] F={f} not exact")
     log({"phase": "kernels.masked_update.block", "world": DIST_BLOCK_WORLD,
-         **out})
+         "ragged_unaligned_exact": [1, 3, 8], **out})
     return out
 
 
@@ -4273,6 +4298,13 @@ TRAIN_SSM_STEPS, TRAIN_SSM_BATCH, TRAIN_SSM_SEQ = 3, 2, 512
 #: selective_scan_bwd held and timed at [B, S, Di, N]: falcon-mamba's
 #: width at the SSM training batch.
 TRAIN_SCAN_SHAPE = (2, 512, 8192, 16)
+#: selective_scan_bwd also held at ragged [B, S, Di, N], with dh_last or
+#: None: S not a multiple of the 16-step chunk, chunk counts that are not a
+#: multiple of the kernel's span of 64 / N chunks (one, three, 63 and 34
+#: chunks over spans of 4, 8, 2 and 16), Di not a multiple of its
+#: 8-channel group, and every N it takes.
+SCAN_BWD_RAGGED = (((1, 1, 37, 16), True), ((2, 37, 133, 8), False),
+                   ((1, 1000, 64, 32), False), ((3, 529, 99, 4), True))
 #: flash_fa2 held against autograd through the plain flash scan at
 #: [B, H, S, dh] over TRAIN_FLASH_KV kv heads (qwen3-0.6b's attention at
 #: the training batch), causal, in key blocks of TRAIN_FLASH_BLOCK.
@@ -4286,9 +4318,13 @@ TRAIN_CPU_TOKENS = (1, 64)
 #  * the scan's backward kernel against its plain version (on the same
 #    chunk states) and against autograd through the plain loop, each
 #    gradient relative to its largest |value|: float32 on both sides; the
-#    kernel's decay is ex2.approx (2 ulp), its dB/dC sums run over 256
-#    blocks' atomics and its dA/dD over the batch, in other orders, over
-#    512 steps.
+#    kernel's decay is ex2.approx (2 ulp); its carry into each chunk is a
+#    reverse scan of the chunks' affine maps (products of a span's decays
+#    in a tree, not one step at a time), its dB/dC sums run over a warp's
+#    channels in registers, then the block's warps and the blocks'
+#    atomics, dx and ddt over per-state-group partial sums and dA/dD over
+#    lanes, warps and the batch, all in other orders than the plain
+#    loop's.
 SCAN_GRAD_REL = 1e-4
 #  * flash_fa2's output and gradients against autograd through the plain
 #    scan, float32 inputs, relative to each one's largest |value|: the same
@@ -4511,11 +4547,12 @@ def _scan_bwd_section(dev: str = "cuda") -> dict:
     TRAIN_SCAN_SHAPE with a random h0 and dh_last (the JAX kernel tests'
     distributions): the kernel's y, h_last and chunk states against
     ``selective_scan_fwd_ref`` within SCAN_REL; the backward kernel
-    against ``selective_scan_bwd_ref`` on the plain chunk states, and
-    autograd through ``ops.selective_scan`` (both kernels) against
-    autograd through ``selective_scan_ref``, each of the seven gradients
-    within SCAN_GRAD_REL of its largest |value|; timed beside its bound,
-    the plain backward, and the forward with and without the states."""
+    against ``selective_scan_bwd_ref`` on the plain chunk states, there
+    and at SCAN_BWD_RAGGED, and autograd through ``ops.selective_scan``
+    (both kernels) against autograd through ``selective_scan_ref``, each
+    of the seven gradients within SCAN_GRAD_REL of its largest |value|;
+    timed beside its bound, the plain backward, and the forward with and
+    without the states."""
     from repro_torch.kernels import ops, ref
 
     b, s, d, n = TRAIN_SCAN_SHAPE
@@ -4553,9 +4590,28 @@ def _scan_bwd_section(dev: str = "cuda") -> dict:
 
     auto_rel = _rel_errs(grads(ops.selective_scan),
                          grads(ref.selective_scan_ref))
+    ragged = {}
+    for (rb, rs, rd, rn), with_dhl in SCAN_BWD_RAGGED:
+        r_ins = (randn(rb, rs, rd), torch.nn.functional.softplus(
+            randn(rb, rs, rd)), randn(rb, rs, rn, scale=0.5),
+            randn(rb, rs, rn, scale=0.5), torch.exp(randn(rd, rn,
+                                                          scale=0.3)),
+            randn(rd), randn(rb, rd, rn))
+        r_dy, r_dhl = randn(rb, rs, rd), \
+            randn(rb, rd, rn) if with_dhl else None
+        r_hc = ref.selective_scan_fwd_ref(*r_ins, ops.SCAN_CHUNK)[2]
+        r_got = ops.selective_scan_bwd(*r_ins[:6], r_hc, r_dy, r_dhl)
+        r_want = ref.selective_scan_bwd_ref(*r_ins[:6], r_hc, r_dy, r_dhl,
+                                            ops.SCAN_CHUNK)
+        torch.cuda.synchronize()
+        ragged[f"{rb}x{rs}x{rd}x{rn}" + ("" if with_dhl else "_no_dh")] = \
+            _rel_errs(dict(zip(names, r_got)), dict(zip(names, r_want)))
+        max_abs = max(max_abs, *(float((g - w).abs().max())
+                                 for g, w in zip(r_got, r_want)))
     log({"phase": "kernels.selective_scan_bwd.check", "shape":
          list(TRAIN_SCAN_SHAPE), "forward_rel": fwd_rel,
-         "vs_plain_rel": plain_rel, "vs_autograd_rel": auto_rel})
+         "vs_plain_rel": plain_rel, "vs_autograd_rel": auto_rel,
+         "ragged_vs_plain_rel": ragged})
     require(all(e <= SCAN_REL for e in fwd_rel.values()),
             f"selective_scan with chunk states against the plain loop: "
             f"{fwd_rel}")
@@ -4564,6 +4620,10 @@ def _scan_bwd_section(dev: str = "cuda") -> dict:
     require(all(e <= SCAN_GRAD_REL for e in auto_rel.values()),
             f"autograd through selective_scan against the plain loop's: "
             f"{auto_rel}")
+    require(all(e <= SCAN_GRAD_REL for r in ragged.values()
+                for e in r.values()),
+            f"selective_scan_bwd against its plain version at ragged "
+            f"shapes: {ragged}")
     bound, by, terms = _scan_bwd_bound(b, s, d, n)
     out = {"shape": list(TRAIN_SCAN_SHAPE), "max_abs_err": max_abs,
            "kernel_ms": device_ms(lambda: ops.selective_scan_bwd(

@@ -135,3 +135,82 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
             carry = decay * g
     dd = torch.sum(dy * x, dim=(0, 1))
     return dx, ddt, db, dc, da, dd, carry
+
+
+def selective_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
+                                   b: torch.Tensor, c: torch.Tensor,
+                                   a: torch.Tensor, d_skip: torch.Tensor,
+                                   hc: torch.Tensor, dy: torch.Tensor,
+                                   dh_last: torch.Tensor | None = None,
+                                   chunk: int = 16, span: int | None = None
+                                   ) -> tuple[torch.Tensor, ...]:
+    """:func:`selective_scan_bwd_ref`'s result by the decomposition that
+    ``csrc/selective_scan_bwd.cu`` computes, every chunk at once. Only the
+    tests call it: it holds the kernel's algorithm against the plain
+    backward and the reference on the CPU.
+
+    Each chunk is recomputed forward from its saved state; on the way it
+    forms P_c = Π a_t and L_c = Σ_t (Π_{s≤t} a_s) dy_t C_t, the carry it
+    sends to its left from a zero carry-in, so that with carry K from its
+    right it sends P_c ⊙ K + L_c. A reverse scan of these affine maps, in
+    log depth over ``span`` chunks (by default the kernel's: a warp walks
+    64 / N chunks, two states a lane) and from span to span in turn, gives
+    every chunk its true carry-in; then every chunk walks its steps
+    backwards once. Steps past S are zero inputs, which leave the state
+    and the carry as they are. Returns (dx, ddt, db, dc, da, dd, dh0)."""
+    bsz, s, _ = x.shape
+    nc = hc.shape[1]
+    span = max(1, 64 // a.shape[1]) if span is None else span
+
+    def chunked(t):     # [B, S, W] -> [B, chunks, chunk, W], zeros past S
+        t = torch.nn.functional.pad(t, (0, 0, 0, nc * chunk - s))
+        return t.reshape(bsz, nc, chunk, t.shape[-1])
+
+    xs, dts, dys, bs, cs = map(chunked, (x, dt, dy, b, c))
+    hs, decays = [], []
+    h, p, lsum = hc, torch.ones_like(hc), torch.zeros_like(hc)
+    for k in range(chunk):
+        decay = torch.exp(-dts[:, :, k, :, None] * a)       # [B, C, Di, N]
+        h = decay * h + (dts[:, :, k] * xs[:, :, k])[..., None] \
+            * bs[:, :, k, None, :]
+        p = p * decay
+        lsum = lsum + p * (dys[:, :, k, :, None] * cs[:, :, k, None, :])
+        hs.append(h)
+        decays.append(decay)
+    carry = torch.empty_like(hc)
+    k_in = torch.zeros_like(hc[:, 0]) if dh_last is None else dh_last
+    for s0 in reversed(range(0, nc, span)):
+        s1 = min(nc, s0 + span)
+        pp, ll = p[:, s0:s1], lsum[:, s0:s1]
+        off = 1
+        while off < s1 - s0:   # chunk i composes with chunk i + off
+            w = s1 - s0 - off
+            ll = torch.cat([pp[:, :w] * ll[:, off:] + ll[:, :w],
+                            ll[:, w:]], 1)
+            pp = torch.cat([pp[:, :w] * pp[:, off:], pp[:, w:]], 1)
+            off *= 2
+        carry[:, s1 - 1] = k_in
+        carry[:, s0:s1 - 1] = pp[:, 1:] * k_in[:, None] + ll[:, 1:]
+        k_in = pp[:, 0] * k_in + ll[:, 0]
+    dx, ddt = torch.empty_like(xs), torch.empty_like(xs)
+    db, dc = torch.empty_like(bs), torch.empty_like(cs)
+    da = torch.zeros_like(a)
+    for k in reversed(range(chunk)):
+        h_prev = hs[k - 1] if k else hc
+        g = dys[:, :, k, :, None] * cs[:, :, k, None, :] + carry
+        gb = torch.sum(g * bs[:, :, k, None, :], dim=-1)    # [B, C, Di]
+        q = g * (decays[k] * h_prev)
+        dx[:, :, k] = gb * dts[:, :, k] + d_skip * dys[:, :, k]
+        ddt[:, :, k] = xs[:, :, k] * gb - torch.sum(q * a, dim=-1)
+        db[:, :, k] = torch.sum(g * (dts[:, :, k] * xs[:, :, k])[..., None],
+                                dim=2)
+        dc[:, :, k] = torch.sum(dys[:, :, k, :, None] * hs[k], dim=2)
+        da = da - torch.sum(dts[:, :, k, :, None] * q, dim=(0, 1))
+        carry = decays[k] * g
+
+    def unchunked(t):
+        return t.reshape(bsz, nc * chunk, t.shape[-1])[:, :s]
+
+    dd = torch.sum(dy * x, dim=(0, 1))
+    return (unchunked(dx), unchunked(ddt), unchunked(db), unchunked(dc), da,
+            dd, carry[:, 0])

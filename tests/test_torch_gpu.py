@@ -8,6 +8,7 @@ plans against the JAX package.
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -142,12 +143,12 @@ def test_segment_reduce_matches_plain_on_card():
 
 @pytest.mark.gpu
 def test_masked_update_matches_plain_on_card():
-    """Exact, for scalar, F=3 and F=8 (the GNN programs' loop state)
-    state; one launch per call."""
+    """Exact, for scalar, F=3 (scalar rows), F=8 (the GNN programs' loop
+    state) and F=32 (the serving lanes') state; one launch per call."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
     plan = _plans(dev)["patched"]
-    for features in (1, 3, 8):
+    for features in (1, 3, 8, 32):
         tail = (features,) if features > 1 else ()
         state = torch.rand((plan.k, plan.v_max) + tail, generator=gen,
                            device=dev)
@@ -160,6 +161,42 @@ def test_masked_update_matches_plain_on_card():
             torch.cuda.synchronize()
             assert TK.LAUNCHES["masked_update"] == before + 1
             assert torch.equal(got, TK.masked_update_ref(*args, combine))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("features", [1, 3, 8])
+def test_masked_update_ragged_on_card(features, offset):
+    """Exact where the kernel cannot take its vector forms: K·Vmax = 21
+    slots (a last F = 1 thread with one slot), and with ``offset`` 1 a
+    state, glob and mask one element into their buffers (not 16-byte
+    aligned), so F = 1 and F = 8 walk slot by slot."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7 + features + offset)
+    k, v_max, n_vertices = 3, 7, 11
+    tail = (features,) if features > 1 else ()
+
+    def view(buf, shape):
+        return buf[offset:offset + math.prod(shape)].view(shape)
+
+    state = view(torch.rand(k * v_max * features + 1, generator=gen,
+                            device=dev), (k, v_max) + tail)
+    glob = view(torch.rand(n_vertices * features + 1, generator=gen,
+                           device=dev), (n_vertices,) + tail)
+    l2g = view(torch.randint(0, n_vertices, (k * v_max + 1,),
+                             generator=gen, device=dev, dtype=torch.int32),
+               (k, v_max))
+    vmask = view(torch.rand(k * v_max + 1, generator=gen, device=dev) < 0.8,
+                 (k, v_max))
+    rep = view(torch.rand(k * v_max + 1, generator=gen, device=dev) < 0.5,
+               (k, v_max))
+    for combine in COMBINES:
+        before = TK.LAUNCHES["masked_update"]
+        got = TK.masked_update(state, glob, l2g, vmask, rep, combine)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["masked_update"] == before + 1
+        assert torch.equal(got, TK.masked_update_ref(state, glob, l2g, vmask,
+                                                     rep, combine))
 
 
 def _exchange_plans(dev: str) -> dict:
@@ -1035,9 +1072,11 @@ def test_selective_scan_lanes_on_card(n, lanes):
 
 
 #: The scan's backward kernel against its plain version, relative to each
-#: gradient's largest |value|: float32 both, ex2.approx decays, and
-#: atomic sums of dB/dC over blocks and of dA/dD over the batch in other
-#: orders (measured 1e-7 to 9e-7 at [2, 512, 8192, 16] on an H100).
+#: gradient's largest |value|: float32 both, ex2.approx decays, the carry
+#: into each chunk from a reverse scan of the chunks' affine maps, and sums
+#: of dB/dC over channels and blocks, of dx/ddt over n and of dA/dD over
+#: chunks and the batch in other orders (measured 1e-7 to 9e-7 at [2, 512,
+#: 8192, 16] on an H100).
 SCAN_GRAD_REL = 1e-4
 
 
@@ -1089,6 +1128,40 @@ def test_selective_scan_bwd_matches_plain_on_card(b, s, d, n):
         - launches["selective_scan_bwd"] == 1
     for g, w in zip(on_card, grads("cpu")):
         err = float((g - w).abs().max())
+        assert err <= SCAN_GRAD_REL * float(w.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,n,with_dhl", [
+    (1, 1, 37, 16, True), (2, 37, 133, 8, False), (1, 1000, 64, 32, False),
+    (3, 529, 99, 4, True)])
+def test_selective_scan_bwd_ragged_on_card(b, s, d, n, with_dhl):
+    """The backward kernel against its plain version where its layout is
+    ragged: S not a multiple of the 16-step chunk, 1, 3, 63 and 34 chunks
+    (over spans of 64 / N chunks), Di not a multiple of the 8-channel
+    group, every N, with and without dh_last; one launch per call."""
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import ref as TR
+    dev = _card()
+    gen = torch.Generator().manual_seed(b * 1000 + s + n + 13)
+    x = torch.randn((b, s, d), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=gen))
+    bb, cc = (torch.randn((b, s, n), generator=gen) * 0.5 for _ in range(2))
+    a = torch.exp(torch.randn((d, n), generator=gen) * 0.3)
+    dsk = torch.randn(d, generator=gen)
+    h0 = torch.randn((b, d, n), generator=gen)
+    dy = torch.randn((b, s, d), generator=gen)
+    dhl = torch.randn((b, d, n), generator=gen) if with_dhl else None
+    ins = (x, dt, bb, cc, a, dsk, h0)
+    _, _, hc = TR.selective_scan_fwd_ref(*ins, TO.SCAN_CHUNK)
+    want = TR.selective_scan_bwd_ref(*ins[:6], hc, dy, dhl, TO.SCAN_CHUNK)
+    before = TO.LAUNCHES["selective_scan_bwd"]
+    got = TO.selective_scan_bwd(*(t.to(dev) for t in ins[:6] + (hc, dy)),
+                                None if dhl is None else dhl.to(dev))
+    torch.cuda.synchronize()
+    assert TO.LAUNCHES["selective_scan_bwd"] == before + 1
+    for g, w in zip(got, want):
+        err = float((g.cpu() - w).abs().max())
         assert err <= SCAN_GRAD_REL * float(w.abs().max()), err
 
 

@@ -101,6 +101,63 @@ def test_plain_backward_matches_autograd_of_the_plain_loop(b, s, d, n,
         _close(g, w, what=name)
 
 
+#: SHAPES and a length of 34 chunks (16·33 + 5 steps): several of the
+#: kernel's spans, the last ragged.
+CHUNKED_SHAPES = SHAPES + [(1, 16 * 33 + 5, 3, 8, True)]
+
+
+def _chunked_case(b, s, d, n, with_dhl):
+    """Inputs of one CHUNKED_SHAPES case (numpy): x, dt, B, C, A, D, h0,
+    dy and dh_last (zeros when the case has none)."""
+    *ins, dy, dhl = _inputs(b, s, d, n, seed=s + 11)
+    return ins, dy, dhl if with_dhl else np.zeros_like(ins[6])
+
+
+@pytest.fixture(scope="module")
+def _chunked_jax_grads():
+    """``jax.vjp`` of the reference's ``_selective_scan_chunked`` (its
+    chunk 16 where it divides S, else one chunk of S) at every
+    CHUNKED_SHAPES case, traced and compiled as one program."""
+    cases = [_chunked_case(*shape) for shape in CHUNKED_SHAPES]
+
+    def grads(args):
+        out = []
+        for (x, *rest), dy, dhl in args:
+            chunk = 16 if x.shape[1] % 16 == 0 else x.shape[1]
+            _, vjp = jax.vjp(lambda *u, c=chunk:
+                             RS._selective_scan_chunked(*u, c), x, *rest)
+            out.append(vjp((dy, dhl)))
+        return out
+
+    args = [(list(map(jnp.asarray, ins)), jnp.asarray(dy), jnp.asarray(dhl))
+            for ins, dy, dhl in cases]
+    return dict(zip(CHUNKED_SHAPES, jax.jit(grads)(args)))
+
+
+@pytest.mark.parametrize("shape", CHUNKED_SHAPES,
+                         ids=["-".join(map(str, sh)) for sh in CHUNKED_SHAPES])
+def test_chunk_parallel_backward_matches_plain_and_jax_vjp(
+        shape, _chunked_jax_grads):
+    """``ref.selective_scan_bwd_chunked_ref``, the decomposition the
+    backward kernel computes (the chunk-local adjoint, the decay products,
+    the reverse affine scan across chunks, the second walk with the true
+    carry), against the plain backward on the same chunk states and
+    against ``jax.vjp`` of the reference's ``_selective_scan_chunked``."""
+    ins, dy, dhl = _chunked_case(*shape)
+    t = [torch.from_numpy(u) for u in ins]
+    tdy = torch.from_numpy(dy)
+    tdhl = torch.from_numpy(dhl) if shape[4] else None
+    _, _, hc = ref.selective_scan_fwd_ref(*t, ops.SCAN_CHUNK)
+    got = ref.selective_scan_bwd_chunked_ref(*t[:6], hc, tdy, tdhl,
+                                             ops.SCAN_CHUNK)
+    plain = ref.selective_scan_bwd_ref(*t[:6], hc, tdy, tdhl,
+                                       ops.SCAN_CHUNK)
+    for name, g, w in zip(NAMES, got, plain):
+        _close(g, w, what=name)
+    for name, g, w in zip(NAMES, got, _chunked_jax_grads[shape]):
+        _close(g, w, what=name)
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_scan_gradients_match_jax_vjp_of_the_chunked_reference(with_h0):
     """Three reference chunks of 16 (its associative scan inside each, a

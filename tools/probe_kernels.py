@@ -1,8 +1,10 @@
 """Time the design choices of segment_reduce, gspmm, minplus_sweep,
-selective_scan and the replica exchange on one GPU, and, with
-``--parent``, the kernels they replaced, in the same process.
+selective_scan, the replica exchange, selective_scan_bwd and
+masked_update on one GPU, and, with ``--parent``, the kernels they
+replaced, in the same process.
 
     python3 tools/probe_kernels.py [--parent DIR] [--twin DIR]
+                                   [--scan-bwd-variant NAME[,...]]
                                    [--only NAME,...]
 
 segment_reduce: on the main path's plan (dblp 1.0 partitioned by DFEP, K =
@@ -49,13 +51,29 @@ SSSP, WCC, PageRank(30), ``gcn_layer`` and ``kge_score`` with the
 engine's exchange swapped for the chain and back, in turns (counters
 equal).
 
+selective_scan_bwd: at ``chip_smoke.TRAIN_SCAN_SHAPE`` and
+``chip_smoke.SCAN_BWD_RAGGED``, inputs drawn as ``chip_smoke.py`` draws
+them, each of the seven gradients held to ``chip_smoke.SCAN_GRAD_REL`` of
+the plain version on the plain chunk states; at the training shape the
+wrapper's device ms beside the bound, and with ``--parent`` (and
+``--scan-bwd-variant NAME[,...]``: this tree's source patched as
+``SCAN_BWD_VARIANTS`` says, written to ``build/variant/`` and built
+there) the other builds in turns with this one. The variants are
+ablations, not designs: each but ``warps8`` returns wrong gradients.
+masked_update: on the main path's plan and on a world-2 rank's block
+(``chip_smoke.DIST_BLOCK_WORLD``), at F = 1, 3, 8 and
+``chip_smoke.SERVE_LANES``, exact against the plain version (min and
+add, ~20% of the states +inf), device ms beside the bound and, with
+``--parent``, in turns with the parent's kernel (held exact too).
+
 ``--parent DIR`` names a checkout of the commit before a redesign: its
 ``csrc/segment_reduce.cu`` (a memset, a thread per target, a block per
 listed hub, an atomic append scatter), ``csrc/gspmm.cu`` (a memset, a lane
 group per target, hub chunks listed by an atomic and combined by float
 atomics, an append launch), ``csrc/minplus_sweep.cu`` and
-``csrc/selective_scan.cu`` and ``csrc/masked_update.cu`` (the chain's
-update) are built with nvcc into ``build/parent/`` and
+``csrc/selective_scan.cu``, ``csrc/selective_scan_bwd.cu`` (a thread
+walking all S steps) and ``csrc/masked_update.cu`` (the chain's update; a
+thread an element) are built with nvcc into ``build/parent/`` and
 called through their own C entry points, timed in the order parent, new,
 new, parent; the parent's segment_reduce also on one target and one append
 slot (its four device operations with almost no work). Device times are
@@ -132,6 +150,8 @@ PARENT = {
     "selective_scan": ("selective_scan_f32", [_P] * 9 + [_I] * 4 + [_P]),
     "masked_update": ("masked_update_f32", [_P] * 6 + [_L, _I, _I,
                                                         ctypes.c_float, _P]),
+    "selective_scan_bwd": ("selective_scan_bwd_f32",
+                           [_P] * 16 + [_I] * 4 + [_P]),
 }
 
 
@@ -155,13 +175,15 @@ def _parent_entries(parent: Path, names) -> dict:
 
 
 def _nvcc(source: Path, lib: Path) -> float:
-    """Build ``source`` into ``lib``; the seconds it took."""
+    """Build ``source`` into ``lib``; the seconds it took. The compiler's
+    messages go to ``lib``.log."""
     from repro_torch import cuda_build
     lib.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                    "-o", str(lib), str(source)],
-                   check=True, capture_output=True, text=True)
+    done = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                           "-o", str(lib), str(source)],
+                          check=True, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
     return time.perf_counter() - t0
 
 
@@ -560,6 +582,175 @@ def probe_scan(gen, parent) -> None:
         C.log(row)
 
 
+def _scan_bwd_args(gen, b, s, d, n, with_dhl):
+    """Seeded inputs of the scan's backward, drawn as ``chip_smoke.py``
+    draws them: ((x, dt, B, C, A, D, h0), dy, dh_last or None)."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, bb, cc = randn(b, s, d), randn(b, s, n, scale=0.5), \
+        randn(b, s, n, scale=0.5)
+    dt = torch.nn.functional.softplus(randn(b, s, d))
+    a = torch.exp(randn(d, n, scale=0.3))
+    dsk, h0 = randn(d), randn(b, d, n)
+    dy, dhl = randn(b, s, d), randn(b, d, n)
+    return (x, dt, bb, cc, a, dsk, h0), dy, dhl if with_dhl else None
+
+
+def _scan_bwd_launch(fn, ins, hc, dy, dhl):
+    """One call of a selective_scan_bwd C entry point, its outputs
+    allocated and zeroed as ``ops.selective_scan_bwd`` does."""
+    x, dt, bb, cc, a, dsk = ins[:6]
+    bsz, s, d = x.shape
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.zeros_like(bb), torch.zeros_like(cc)
+    da, dd = torch.zeros_like(a), torch.zeros_like(dsk)
+    dh0 = torch.empty((bsz, d, a.shape[1]), device=x.device)
+    rc = fn(*[t.data_ptr() for t in (x, dt, bb, cc, a, dsk, hc, dy)],
+            None if dhl is None else dhl.data_ptr(),
+            *[t.data_ptr() for t in (dx, ddt, db, dc, da, dd, dh0)],
+            bsz, s, d, a.shape[1], torch.cuda.current_stream().cuda_stream)
+    C.require(rc == 0, f"selective_scan_bwd: CUDA error {rc}")
+    return dx, ddt, db, dc, da, dd, dh0
+
+
+#: Ablations of selective_scan_bwd.cu, each a list of (text, replacement)
+#: pairs; each text must occur in the source exactly once. ``warps8``: the
+#: layout of 8-warp blocks, one an SM; ``no_compute``: no warp recomputes
+#: or walks (staging, write-out, dB/dC flush and barriers remain);
+#: ``no_walk``: the recompute and the carry scan, no backward walk;
+#: ``loads_only``: ``no_compute`` without the dx/ddt stores and the dB/dC
+#: atomics (the inputs staged, the barriers).
+_NO_COMPUTE = (("      if (d < Di) {\n", "      if (d < Di && S < 0) {\n"),)
+SCAN_BWD_VARIANTS = {
+    "warps8": (("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
+               ("constexpr int kBlocksPerSm = 2;",
+                "constexpr int kBlocksPerSm = 1;")),
+    "no_compute": _NO_COMPUTE,
+    "no_walk": (("        // walk the chunk backwards with its true carry\n",
+                 "        if (S < 0) {\n"),
+                ("        // chunk sp·kC sends its carry left",
+                 "        }\n        // chunk sp·kC sends its carry left")),
+    "loads_only": _NO_COMPUTE + (
+        ("if (dc < Di && t_base + tl < S) {",
+         "if (dc < Di && t_base + tl < S && S < 0) {"),
+        ("      if (t_base + tl < S) {",
+         "      if (t_base + tl < S && S < 0) {")),
+}
+
+
+def _scan_bwd_variant(name: str):
+    """Build this tree's selective_scan_bwd.cu patched as
+    ``SCAN_BWD_VARIANTS[name]`` under ``build/variant/``; its entry point,
+    or None (logged) if nvcc refused it."""
+    from repro_torch import cuda_build
+    src = (cuda_build.CSRC / "selective_scan_bwd.cu").read_text()
+    for old, new in SCAN_BWD_VARIANTS[name]:
+        C.require(src.count(old) == 1,
+                  f"variant {name}: {old!r} not once in the source")
+        src = src.replace(old, new)
+    out = ROOT / "build" / "variant"
+    out.mkdir(parents=True, exist_ok=True)
+    source, lib = out / f"scan_bwd_{name}.cu", out / f"scan_bwd_{name}.so"
+    source.write_text(src)
+    try:
+        secs = _nvcc(source, lib)
+    except subprocess.CalledProcessError as e:
+        C.log({"phase": "probe.selective_scan_bwd.variant", "variant": name,
+               "failed": (e.stdout + e.stderr)[-4000:]})
+        return None
+    symbol, argtypes = cuda_build.SIGNATURES["selective_scan_bwd"]
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    C.log({"phase": "probe.selective_scan_bwd.variant", "variant": name,
+           "build_s": secs,
+           "ptxas": [ln.strip() for ln in lib.with_suffix(".log")
+                     .read_text().splitlines()
+                     if "registers" in ln or "spill" in ln]})
+    return fn
+
+
+def probe_scan_bwd(gen, parent, variants) -> None:
+    """``variants``: label -> another build's entry point, held and timed
+    at the training shape only (a build may refuse some N)."""
+    from repro_torch import cuda_build
+    from repro_torch.kernels import ops, ref
+    names = ("dx", "ddt", "db", "dc", "da", "dd", "dh0")
+    new = cuda_build.entry("selective_scan_bwd")
+    bad = []
+    for shape, with_dhl in ((C.TRAIN_SCAN_SHAPE, True),) \
+            + C.SCAN_BWD_RAGGED:
+        ins, dy, dhl = _scan_bwd_args(gen, *shape, with_dhl)
+        hc = ref.selective_scan_fwd_ref(*ins, ops.SCAN_CHUNK)[2]
+        want = dict(zip(names, ref.selective_scan_bwd_ref(
+            *ins[:6], hc, dy, dhl, ops.SCAN_CHUNK)))
+        row = {"phase": "probe.selective_scan_bwd", "shape": list(shape),
+               "dh_last": with_dhl}
+        train = tuple(shape) == C.TRAIN_SCAN_SHAPE
+        others = dict(variants) if train else {}
+        if parent is not None:
+            others["parent"] = parent["selective_scan_bwd"]
+        for label, fn in {"new": new, **others}.items():
+            got = _scan_bwd_launch(fn, ins, hc, dy, dhl)
+            torch.cuda.synchronize()
+            row[f"{label}_rel"] = C._rel_errs(dict(zip(names, got)), want)
+        if not all(e <= C.SCAN_GRAD_REL for e in row["new_rel"].values()):
+            bad.append(f"selective_scan_bwd at {shape}: {row['new_rel']}")
+        if train:
+            row["bound_ms"] = C._scan_bwd_bound(*shape)[0]
+            row["wrapper_ms"] = C.device_ms(lambda: ops.selective_scan_bwd(
+                *ins[:6], hc, dy, dhl))
+            for label, fn in others.items():
+                row[f"{label}_turns"] = _in_turns(
+                    lambda f=fn: _scan_bwd_launch(f, ins, hc, dy, dhl),
+                    lambda: _scan_bwd_launch(new, ins, hc, dy, dhl))
+        C.log(row)
+    C.require(not bad, "; ".join(bad))
+
+
+def probe_masked_update(g, owner, gen, parent) -> None:
+    from repro_torch import engine as E
+    from repro_torch.engine import kernels as Kn
+    from repro_torch.engine.plan import shard_plan
+    plan = E.compile_plan(g, owner, C.K)
+    for where, p in (("plan", plan),
+                     ("block", shard_plan(plan, 0, C.DIST_BLOCK_WORLD))):
+        for f in (1, 3, 8, C.SERVE_LANES):
+            shape = (p.k, p.v_max) + ((f,) if f > 1 else ())
+            state = torch.rand(shape, generator=gen, device="cuda") * 30
+            state = torch.where(torch.rand(shape, generator=gen,
+                                           device="cuda") < 0.2,
+                                float("inf"), state)
+            glob = torch.rand((p.n_vertices,) + shape[2:], generator=gen,
+                              device="cuda") * 30
+            args = (state, glob, p.local2global, p.vmask, p.replicated)
+            for combine in ("min", "add"):
+                C.require(torch.equal(Kn.masked_update(*args, combine),
+                                      Kn.masked_update_ref(*args, combine)),
+                          f"masked_update {where} F={f} {combine}")
+            row = {"phase": "probe.masked_update", "where": where,
+                   "shape": list(shape), "bound_ms": C._mu_bound(p, f)[0],
+                   "kernel_ms": C.device_ms(
+                       lambda: Kn.masked_update(*args, "min"))}
+            if parent is not None:
+                old_fn = parent["masked_update"]
+
+                def old(a=args, pp=p, width=f):
+                    out = torch.empty_like(a[0])
+                    rc = old_fn(*[t.data_ptr() for t in (*a, out)],
+                                pp.k * pp.v_max, width, pp.n_vertices,
+                                Kn._IDENTITY["min"],
+                                torch.cuda.current_stream().cuda_stream)
+                    C.require(rc == 0, f"parent masked_update: {rc}")
+                    return out
+                C.require(torch.equal(old(), Kn.masked_update(*args,
+                                                              "min")),
+                          f"parent masked_update {where} F={f}")
+                row.update(_in_turns(old, lambda a=args: Kn.masked_update(
+                    *a, "min")))
+            C.log(row)
+
+
 def _chain_parts(Kn, plan, values, combine, update) -> dict:
     """The device operations of the parent's exchange chain
     (``Kn.exchange_ref`` with ``update``), each alone on the inputs it gets
@@ -781,7 +972,7 @@ EX_ORDERS = ("first_slot", "signature")
 E2E_RUNS = 5
 
 PROBES = ("segment_reduce", "gspmm", "selective_scan", "minplus_sweep",
-          "exchange")
+          "exchange", "selective_scan_bwd", "masked_update")
 
 
 def main() -> int:
@@ -791,6 +982,10 @@ def main() -> int:
                     help="a checkout whose gspmm.cu or replica_exchange.cu "
                          "has this tree's C interface, timed in turns "
                          "against this tree's")
+    ap.add_argument("--scan-bwd-variant", default="",
+                    help="comma-separated subset of "
+                         f"{tuple(SCAN_BWD_VARIANTS)}: this tree's "
+                         "selective_scan_bwd.cu patched so, timed in turns")
     ap.add_argument("--only", default=",".join(PROBES),
                     help=f"comma-separated subset of {PROBES}")
     args = ap.parse_args()
@@ -804,7 +999,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
     if "selective_scan" in only:
         probe_scan(gen, parent)
-    if {"segment_reduce", "gspmm", "minplus_sweep", "exchange"} & set(only):
+    if "selective_scan_bwd" in only:
+        variants = {}
+        for name in filter(None, args.scan_bwd_variant.split(",")):
+            fn = _scan_bwd_variant(name)
+            if fn is not None:
+                variants[name] = fn
+        probe_scan_bwd(gen, parent, variants)
+    if {"segment_reduce", "gspmm", "minplus_sweep", "exchange",
+            "masked_update"} & set(only):
         from repro_torch.core import dfep, graph
         g = graph.load_dataset("dblp", scale=C.DBLP_SCALE, seed=C.SEED)
         owner, _ = dfep.partition(g, k=C.K, seed=C.SEED, max_rounds=4000,
@@ -819,6 +1022,8 @@ def main() -> int:
             probe_gspmm(g, owner, gen, parent, twin)
         if "minplus_sweep" in only:
             probe_minplus(g, owner, gen, parent)
+        if "masked_update" in only:
+            probe_masked_update(g, owner, gen, parent)
         if "exchange" in only:
             twin = None
             if args.twin is not None:

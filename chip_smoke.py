@@ -369,6 +369,29 @@ non-zero with no "ok" line):
               (loss, gradients, and AdamW on the same gradients). The
               kernels line gains the ``selective_scan_bwd`` row and the
               ``selective_scan`` row its ``train_launches``.
+19. dryrun  — the launch tooling, after train. (a) ``launch.dryrun.run_cell``
+              on the host for DRYRUN_CELLS on the production meshes
+              (16×16, and 2×16×16 for the last): each record ``ok`` or
+              ``skipped``, never ``error``; each one's roofline terms and
+              ``count_s`` logged. (b) DRYRUN_CARD_CELLS on a 1×1 mesh,
+              each counted on ``meta`` stand-ins by the dry run and then
+              run once on the card under the same ``roofline.count``
+              counter, through ``launch.dryrun.run_step`` on real tensors
+              (seeded random weights, ``SyntheticPipeline`` batches; the
+              decode cell's caches from a real prefill of its prompt,
+              grown): qwen3-0.6b's train step under TUNED at TRAIN_BATCH ×
+              TRAIN_SEQ, falcon-mamba-7b's at TRAIN_SSM_LAYERS layers and
+              TRAIN_SSM_BATCH × TRAIN_SSM_SEQ (``selective_scan`` and
+              ``selective_scan_bwd`` priced on ``meta``, launched on the
+              card), and qwen3-4b's BASELINE decode step at LM_BATCH after
+              an LM_PROMPT-token prompt. The dry run's argument bytes must
+              equal the bytes of the real step's argument tensors, its
+              FLOPs and bytes the card count's exactly, and its kernel
+              launches both the card count's and ``ops.LAUNCHES``' rise.
+              Logged, with no bound: the roofline time against the warm
+              step's wall time (the median of DRYRUN_WARM steps), and the
+              temp estimate against the step's rise of
+              ``max_memory_allocated`` over what was allocated before it.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -388,10 +411,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
 
-# The H100 SXM's published peaks (NVIDIA data sheet) at a 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+# The H100 SXM's published peaks (NVIDIA data sheet) at a 700 W limit, from
+# the port's one copy of them.
+HBM_BYTES_PER_S = MESH.HBM_BW
+FP32_FLOPS = MESH.FP32_FLOPS
 # Tolerances, each with its reason:
 #  * segment_reduce add: the kernel sums a run in slot order, or in a
 #    warp's or a block's shuffle tree, then the target's append
@@ -3731,17 +3756,17 @@ def _sm_clock_hz() -> float:
 
 def _scan_bound(b: int, s: int, d: int, n: int, h0: bool):
     """selective_scan's bound terms in ms, as ``(ms, by, terms)`` with
-    ``by`` "bytes" or "operations": x, dt, B, C, A and D read once, h0
-    read where it is given, y and h_last written once (bytes); 6 float32
-    operations per state element and step (flops); and one exp per state
-    element and step at EX2_PER_CLOCK_PER_SM on every SM at the maximum SM
-    clock (exps). The larger of flops and exps is the operations term."""
+    ``by`` "bytes" or "operations": the bytes and float32 operations of
+    ``ops.selective_scan_work`` (inputs and outputs once; 6 operations per
+    state element and step), and one exp per state element and step at
+    EX2_PER_CLOCK_PER_SM on every SM at the maximum SM clock (exps). The
+    larger of flops and exps is the operations term."""
+    from repro_torch.kernels import ops
     elems = b * s * d * n
-    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + d
-                  + b * d * n * (2 if h0 else 1))
+    flops, nbytes = ops.selective_scan_work(b, s, d, n, h0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     terms = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-             "flops_ms": 1e3 * 6 * elems / FP32_FLOPS,
+             "flops_ms": 1e3 * flops / FP32_FLOPS,
              "exps_ms": 1e3 * elems / (EX2_PER_CLOCK_PER_SM * sms
                                        * _sm_clock_hz()),
              "exps": elems, "sms": sms}
@@ -4523,23 +4548,26 @@ def _train_flash(dev: str = "cuda") -> dict:
 
 
 def _scan_bwd_bound(b: int, s: int, d: int, n: int):
-    """selective_scan_bwd's bound in ms, as ``(ms, by, terms)``: x, dt, B,
+    """selective_scan_bwd's bound in ms, as ``(ms, by, terms)``: the bytes
+    and float32 operations of ``ops.selective_scan_bwd_work`` (x, dt, B,
     C, dy, A, D, the chunk states and dh_last read once, the seven
-    gradients written once (bytes), against the recompute's B·S·Di·N exps
-    at EX2_PER_CLOCK_PER_SM on every SM at the maximum SM clock."""
+    gradients written once; the recompute's and the walk's operations),
+    against the recompute's B·S·Di·N exps at EX2_PER_CLOCK_PER_SM on every
+    SM at the maximum SM clock. The larger of flops and exps is the
+    operations term."""
     from repro_torch.kernels import ops
-    chunks = -(-s // ops.SCAN_CHUNK)
-    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n + 2 * d
-                  + b * chunks * d * n + 2 * b * d * n)
+    flops, nbytes = ops.selective_scan_bwd_work(b, s, d, n)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     elems = b * s * d * n
     terms = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "flops_ms": 1e3 * flops / FP32_FLOPS,
              "exps_ms": 1e3 * elems / (EX2_PER_CLOCK_PER_SM * sms
                                        * _sm_clock_hz()),
              "bytes": nbytes, "exps": elems}
-    if terms["bytes_ms"] >= terms["exps_ms"]:
+    ops_ms = max(terms["flops_ms"], terms["exps_ms"])
+    if terms["bytes_ms"] >= ops_ms:
         return terms["bytes_ms"], "bytes", terms
-    return terms["exps_ms"], "operations", terms
+    return ops_ms, "operations", terms
 
 
 def _scan_bwd_section(dev: str = "cuda") -> dict:
@@ -4795,6 +4823,165 @@ def phase_train(dev: str = "cuda") -> dict:
             "selective_scan_launches": ssm["launches"]["selective_scan"]}
 
 
+#: (a): the four cells of tests/test_dryrun_small.py on the 16×16 mesh,
+#: then qwen3-0.6b × train_4k on 2×16×16 (the flag is ``multi_pod``).
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
+                ("qwen2-moe-a2.7b", "decode_32k", False),
+                ("whisper-small", "decode_32k", False),
+                ("falcon-mamba-7b", "long_500k", False),
+                ("qwen3-0.6b", "train_4k", True))
+#: (b): (arch, layers or None for all, TUNED?, kind, batch, sequence).
+DRYRUN_CARD_CELLS = (
+    (TRAIN_ARCH, None, True, "train", TRAIN_BATCH, TRAIN_SEQ),
+    (TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, False, "train", TRAIN_SSM_BATCH,
+     TRAIN_SSM_SEQ),
+    (LM_DENSE_ARCH, None, False, "decode", LM_BATCH, LM_PROMPT))
+DRYRUN_WARM = 3
+
+
+def _tensor_bytes(tree, counter=None) -> int:
+    """The bytes of the tensors of a tree of dicts and tuples; with a
+    ``roofline.count.Counter``, of those the counted step read."""
+    from torch.utils._pytree import tree_flatten
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor)
+               and (counter is None or counter.reads(t)))
+
+
+def _dryrun_real_inputs(cfg, shape, dev: str) -> tuple[dict, int | None]:
+    """Real inputs of ``launch.dryrun.run_step`` for ``shape`` on ``dev``
+    (seeded random weights): for a train step the parameters, zero AdamW
+    state and ``SyntheticPipeline``'s first batch; for a decode step the
+    parameters, the prompt's greedy next token and the caches of a real
+    prefill of the prompt grown to ``shape.seq_len``, with the position
+    after the prompt. Returns (inputs, decode position or None)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import lm
+    from repro_torch.serve import serve_step
+    from repro_torch.train import optimizer as O
+    params = lm.init_params(cfg, torch.Generator(device=dev)
+                            .manual_seed(SEED), dev)
+    if shape.kind == "train":
+        batch = SyntheticPipeline(cfg, DataConfig(
+            shape.global_batch, shape.seq_len, SEED), dev).batch_at(0)
+        return {"params": params, "opt": O.init_opt_state(params),
+                "batch": batch}, None
+    prompt = SyntheticPipeline(cfg, DataConfig(
+        shape.global_batch, LM_PROMPT, SEED), dev).batch_at(0)["tokens"]
+    with torch.inference_mode():
+        logits, caches = serve_step.prefill(cfg, params, prompt)
+        caches = serve_step.grow_caches(cfg, caches, shape.global_batch,
+                                        shape.seq_len)
+        token = serve_step.greedy_token(logits[:, -1:, :], cfg.vocab)
+    del logits
+    return {"params": params, "token": token, "caches": caches}, LM_PROMPT
+
+
+def _dryrun_card_cell(arch, layers, tuned, kind, batch, seq,
+                      dev: str = "cuda") -> dict:
+    """One 1×1 cell: the dry run's record on ``meta``, then the same step
+    once on the card under a ``Counter("cuda")`` and DRYRUN_WARM times
+    without; the equalities of phase 19 (b) required."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.perf import BASELINE, TUNED, set_perf
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    # decode: one token against caches of the prompt and 16 new tokens
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}",
+                        seq + LM_NEW if kind == "decode" else seq, batch,
+                        kind)
+    rec = DR.run_cell(arch, shape.name, perf=tuned, cfg=cfg, shape=shape,
+                      mesh=MESH.make_mesh((1, 1), ("data", "model")))
+    require(rec["status"] == "ok", f"dryrun {arch} {shape}: {rec}")
+    raw = rec["roofline"]["raw_cost_analysis"]
+    dry_launches = {k: v["launches"] for k, v in raw["kernels"].items()}
+
+    set_perf(TUNED if tuned else BASELINE)
+    try:
+        torch.cuda.empty_cache()
+        inputs, cache_len = _dryrun_real_inputs(cfg, shape, dev)
+        real_args = {k: _tensor_bytes(v) for k, v in inputs.items()}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        counter, out, _ = DR.count_step(cfg, shape, inputs, dev,
+                                        cache_len)
+        torch.cuda.synchronize()
+        temp = torch.cuda.max_memory_allocated() - before
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        counts = counter.counts
+        read_args = {k: _tensor_bytes(v, counter) for k, v in inputs.items()}
+        del out
+        warm = []
+        for _ in range(DRYRUN_WARM):
+            out, t = wall(lambda: DR.run_step(cfg, shape, inputs, cache_len))
+            del out
+            warm.append(t)
+    finally:
+        set_perf(BASELINE)
+    del inputs
+    torch.cuda.empty_cache()
+    dry_args = {k: v for k, v in rec["argument_bytes"].items()
+                if k != "cache_len"}
+    roof = rec["roofline"]
+    out = {"arch": arch, "layers": cfg.n_layers, "perf":
+           "TUNED" if tuned else "BASELINE", "shape": dataclasses.asdict(
+               shape), "count_s": rec["count_s"],
+           "flops": raw["flops"], "bytes": raw["bytes"],
+           "card_flops": counts.flops, "card_bytes": counts.bytes,
+           "ops": raw["ops"], "card_ops": counts.ops,
+           "card_other_device_ops": counts.other_device_ops,
+           "launches_dry": dry_launches, "launches_card": counts.launches(),
+           "launches_ops": launches, "argument_bytes_dry": dry_args,
+           "argument_bytes_card": real_args,
+           "argument_bytes_card_read": read_args,
+           "cache_len_bytes_dry": rec["argument_bytes"].get("cache_len"),
+           "roofline_s": max(roof["compute_s"], roof["memory_s"],
+                             roof["collective_s"]),
+           "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+           "dominant": roof["dominant"], "warm_step_s": warm,
+           "warm_median_step_s": float(np.median(warm)),
+           "temp_bytes_dry": rec["memory_analysis"]["temp_size_in_bytes"],
+           "temp_bytes_card": temp, "card_peak_live_bytes":
+           counts.peak_live_bytes}
+    log({"phase": "dryrun.card", **out})
+    require(dry_args == real_args,
+            f"{arch}: dry-run argument bytes {dry_args} against the card "
+            f"step's {real_args}")
+    require((raw["flops"], raw["bytes"]) == (counts.flops, counts.bytes),
+            f"{arch}: dry-run FLOPs/bytes {raw['flops']}/{raw['bytes']} "
+            f"against the card count's {counts.flops}/{counts.bytes}")
+    require(dry_launches == counts.launches() == launches,
+            f"{arch}: launches priced {dry_launches}, counted on the card "
+            f"{counts.launches()}, made {launches}")
+    return out
+
+
+def phase_dryrun() -> dict:
+    """The launch tooling (phase 19): ``run_cell`` on DRYRUN_CELLS, then
+    ``_dryrun_card_cell`` for each of DRYRUN_CARD_CELLS."""
+    from repro_torch.launch import dryrun as DR
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = DR.run_cell(arch, shape, multi_pod)
+        ro = rec.get("roofline", {})
+        log({"phase": "dryrun.cell", "arch": arch, "shape": shape,
+             "mesh": rec.get("mesh"), "status": rec["status"],
+             "count_s": rec.get("count_s"),
+             "memory_analysis": rec.get("memory_analysis"),
+             **{k: ro.get(k) for k in ("compute_s", "memory_s",
+                                       "collective_s", "dominant",
+                                       "useful_ratio", "flops",
+                                       "bytes_hbm", "coll_bytes")}})
+        require(rec["status"] in ("ok", "skipped"),
+                f"dryrun {arch} {shape}: {rec}")
+    cells = [_dryrun_card_cell(*c) for c in DRYRUN_CARD_CELLS]
+    return {"cells": cells}
+
+
 def main() -> int:
     card = phase_device()
     g, owner, plan, launches, main_results = phase_main()
@@ -4824,6 +5011,7 @@ def main() -> int:
         if row["name"] == "selective_scan":
             row["train_launches"] = train["selective_scan_launches"]
     kernel_line["kernels"].append(train["row"])
+    phase_dryrun()
     phase_cpu_equal()
     _dist_cpu_equal()
     for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH, LM_HYBRID_ARCH,

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import importlib
 
-from .base import MlaConfig, ModelConfig, MoeConfig, SsmConfig  # noqa: F401
+from .base import (SHAPES, MlaConfig, ModelConfig, MoeConfig,  # noqa: F401
+                   ShapeConfig, SsmConfig)
 
 #: Canonical external ids (``--arch <id>``) -> module name.
 ARCH_IDS = {
@@ -37,3 +38,8 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
             f"\"Modules to port\"); ported: {', '.join(PORTED)}")
     mod = importlib.import_module(f"{__name__}.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_archs() -> list[str]:
+    """Every architecture id, in the reference's order."""
+    return list(ARCH_IDS)

@@ -1,10 +1,13 @@
-"""Model configuration (the port's own copy of ``repro.configs.base``).
+"""Model and input-shape configuration (the port's own copy of
+``repro.configs.base``).
 
 One ``ModelConfig`` dataclass covers every architecture family of the JAX
 package (dense GQA, MoE, MLA, SSM, hybrid, enc-dec, VLM-stub), so that
-``param_count`` and the layer pattern are the reference's for any config.
-The port runs every family (MLA included); each architecture file exports
-``CONFIG`` (full size) and ``SMOKE`` (reduced, runs on the CPU).
+``param_count``, ``active_param_count`` and the layer pattern are the
+reference's for any config. The port runs every family (MLA included);
+each architecture file exports ``CONFIG`` (full size) and ``SMOKE``
+(reduced, runs on the CPU). ``SHAPES`` are the reference's input-shape
+cells, which the dry run (``launch/dryrun.py``) counts.
 """
 from __future__ import annotations
 
@@ -145,3 +148,34 @@ class ModelConfig:
             total += self.n_layers * (d * h * dh + 2 * d * kv * dh
                                       + h * dh * d)
         return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        total = self.param_count()
+        mo = self.moe
+        fe = mo.d_ff_expert or f
+        n_moe_layers = sum(1 for li in range(self.n_layers) if self.moe_at(li))
+        inactive = n_moe_layers * (mo.n_experts - mo.top_k) * 3 * d * fe
+        return total - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a step of ``kind`` over ``global_batch``
+    sequences of ``seq_len`` positions (decode: one new token against
+    caches of ``seq_len``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}

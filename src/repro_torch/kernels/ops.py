@@ -54,6 +54,13 @@ Dispatch: a wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; a mix raises, and there is no fallback from one to
 the other. Each launch adds one to :data:`LAUNCHES`. A dtype a kernel does
 not take raises ``ValueError``.
+
+The scan's two wrappers also take ``meta`` tensors, the dry run's
+stand-ins (``launch/dryrun.py``): they return empty outputs of the card
+path's shapes and dtypes and run nothing, neither kernel nor plain
+version. On every device each call adds its ``selective_scan_work`` /
+``selective_scan_bwd_work`` count to the active ``roofline.count.Counter``
+as one launch, and no op inside it is counted.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ from .. import cuda_build
 from ..cuda_build import check as _check
 from ..cuda_build import on_card as _on_card
 from ..cuda_build import stream as _stream
+from ..roofline import count as _count
 from . import ref
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
@@ -393,6 +401,37 @@ def _scan_chunks(s: int) -> int:
     return -(-s // SCAN_CHUNK)
 
 
+def selective_scan_work(b: int, s: int, d: int, n: int, h0: bool,
+                        states: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`selective_scan` launch at
+    [B, S, Di] × N: x, dt, B, C, A and D read once, h0 read where it is
+    given, y and h_last written once, and under ``states`` (autograd) the
+    chunk states [B, ceil(S / SCAN_CHUNK), Di, N] written once; 6 float32
+    operations per state element and step (one of them the exp)."""
+    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + d
+                  + b * d * n * (2 if h0 else 1))
+    if states:
+        nbytes += 4 * b * _scan_chunks(s) * d * n
+    return 6 * b * s * d * n, nbytes
+
+
+def selective_scan_bwd_work(b: int, s: int, d: int, n: int
+                            ) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`selective_scan_bwd` launch at
+    [B, S, Di] × N: x, dt, B, C, dy, A, D, the chunk states and dh_last
+    read once, the seven gradients written once; per state element and
+    step the forward's 6 operations again (the recompute from the chunk
+    states) and six fused multiply-adds of the backward walk (12)."""
+    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n + 2 * d
+                  + b * _scan_chunks(s) * d * n + 2 * b * d * n)
+    return 18 * b * s * d * n, nbytes
+
+
+def _on_meta(*tensors) -> bool:
+    """True when every tensor is a ``meta`` stand-in (the dry run's)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def _check_scan_chunk(symbol: str) -> None:
     """Raise unless the kernel's chunk of saved states is SCAN_CHUNK."""
     got = cuda_build.query(symbol)()
@@ -404,8 +443,25 @@ def _check_scan_chunk(symbol: str) -> None:
 def _scan_forward(x, dt, b, c, a, d_skip, h0, states: bool):
     """(y, h_last, chunk states [B, ceil(S / SCAN_CHUNK), Di, N] or None
     when not ``states``): the kernel on the card, the plain loop on the
-    CPU."""
-    if not _on_card(x, dt, b, c, a, d_skip, *(() if h0 is None else (h0,))):
+    CPU, empty outputs on ``meta``; one counted launch on each."""
+    bsz, s, d_in = (int(n) for n in x.shape)
+    work = selective_scan_work(bsz, s, d_in, int(a.shape[1]), h0 is not None,
+                               states)
+    ins = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
+    with _count.kernel("selective_scan", work, ins):
+        return _scan_forward_body(x, dt, b, c, a, d_skip, h0, states)
+
+
+def _scan_forward_body(x, dt, b, c, a, d_skip, h0, states: bool):
+    ins = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
+    if _on_meta(*ins):
+        bsz, s, d_in = x.shape
+        n = a.shape[1]
+        return (torch.empty_like(x),
+                x.new_empty((bsz, d_in, n)),
+                x.new_empty((bsz, _scan_chunks(s), d_in, n))
+                if states else None)
+    if not _on_card(*ins):
         if states:
             return ref.selective_scan_fwd_ref(x, dt, b, c, a, d_skip, h0,
                                               SCAN_CHUNK)
@@ -504,8 +560,21 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ``dh_last`` [B, Di, N] (None: zero), all float32 and contiguous ->
     (dx, ddt, db, dc, da, dd, dh0), shaped as x, dt, b, c, a, d_skip and
     h0. CUDA tensors launch ``csrc/selective_scan_bwd.cu``; CPU tensors
-    run :func:`ref.selective_scan_bwd_ref`."""
+    run :func:`ref.selective_scan_bwd_ref`; ``meta`` tensors get empty
+    gradients. One counted launch on each."""
+    bsz, s, d_in = (int(n) for n in x.shape)
+    ins = (x, dt, b, c, a, d_skip, hc, dy) + (
+        () if dh_last is None else (dh_last,))
+    with _count.kernel("selective_scan_bwd", selective_scan_bwd_work(
+            bsz, s, d_in, int(a.shape[1])), ins):
+        return _scan_bwd_body(x, dt, b, c, a, d_skip, hc, dy, dh_last)
+
+
+def _scan_bwd_body(x, dt, b, c, a, d_skip, hc, dy, dh_last):
     extra = (hc, dy) + (() if dh_last is None else (dh_last,))
+    if _on_meta(x, dt, b, c, a, d_skip, *extra):
+        return (*(torch.empty_like(t) for t in (x, x, b, c, a, d_skip)),
+                x.new_empty((x.shape[0], x.shape[2], a.shape[1])))
     if not _on_card(x, dt, b, c, a, d_skip, *extra):
         return ref.selective_scan_bwd_ref(x, dt, b, c, a, d_skip, hc, dy,
                                           dh_last, SCAN_CHUNK)

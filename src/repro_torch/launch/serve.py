@@ -11,12 +11,12 @@ whisper-small (encdec: the encoder gets zero bf16 frames [B, enc_seq, D],
 as the JAX launcher feeds it) and llava-next-34b (vlm: text only, no image
 embeddings, as the JAX launcher runs it); ``--smoke`` picks the reduced
 config. Runs on the card unless
-``--device cpu``. One device: no ``--mesh``, and no ``--perf``: the
-``TUNED`` profile's serving settings (bfloat16 weights replicated over
-data parallelism) are read by launch tooling the port does not have yet;
-its attention settings (``models/perf.py``) apply to any forward run
-under ``perf.set_perf(TUNED)``, and ``launch.train --perf`` trains under
-it.
+``--device cpu``. ``--perf`` serves under the ``TUNED`` profile, as the
+JAX launcher does: its attention settings (``models/perf.py``) apply to
+the forward; its serving settings (bfloat16 weights, replicated over data
+parallelism below a footprint) are read by the dry run's input specs
+(``launch/specs.py``), which price a sharded deployment. One device: no
+``--mesh`` (sharded execution is not ported yet).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 from ..configs import get_config
 from ..core.graph import resolve_device
 from ..models import lm
+from ..models.perf import TUNED, set_perf
 from ..serve.serve_step import Engine
 
 
@@ -40,8 +41,12 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--n-new", type=int, default=8)
+    ap.add_argument("--perf", action="store_true",
+                    help="serve under the TUNED perf profile")
     args = ap.parse_args(argv)
 
+    if args.perf:
+        set_perf(TUNED)
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)

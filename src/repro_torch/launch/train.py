@@ -6,8 +6,9 @@ a checkpoint at the end, resume from the latest one.
 
 Runs on the card unless ``--device cpu``. ``--perf`` trains under the
 ``TUNED`` profile (the FA-2 attention backward, the additive causal
-mask). One device: there is no ``--mesh``, which waits for the port's
-launch tooling (sharding, specs, dry run).
+mask). One device: there is no ``--mesh``; the port's sharding
+environment and dry run (``sharding/``, ``launch/{mesh,specs,dryrun}.py``)
+count a sharded step, and sharded execution is not ported yet.
 """
 from __future__ import annotations
 

@@ -8,8 +8,11 @@ MoE.
 Parameters are stored float32 and cast to bfloat16 at each use; compute
 runs in bfloat16 with float32 where the reference computes in float32
 (the norm, RoPE, attention's softmax and products, the router, the MoE
-combine). The port has no tensor-parallel mesh: heads and experts are
-padded as at tp = 1, and every expert is local.
+combine). Heads and experts are padded to the active mesh's tensor
+parallelism (``sharding.env.get_env().tp_size()``, 1 with no mesh), as the
+reference pads them at init; the ``*_specs`` functions give each
+parameter's logical partition spec, the reference's. Every expert is
+local: the port runs no sharded tensors yet.
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
+from ..sharding.env import get_env
 from .flash_vjp import flash_fa2
 from .perf import get_perf
 
@@ -60,8 +63,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def pad_heads(h: int, kv: int, tp: int = 1) -> tuple[int, int]:
     """Pad (q-heads, kv-heads) so q-heads shard over ``tp`` and group
-    evenly. The port has no tensor-parallel mesh and calls it at tp = 1,
-    where it keeps (h, kv) unless kv ≥ h, which gives (h, h)."""
+    evenly. At tp = 1 it keeps (h, kv) unless kv ≥ h, which gives
+    (h, h)."""
     h_pad = pad_to(h, tp)
     if kv >= h_pad:
         return h_pad, h_pad
@@ -99,8 +102,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def attention_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """Shape of each attention parameter (``wq`` [d, h, dh], ``wo``
     [h, dh, d]; ``bq/bk/bv`` with ``qkv_bias``, ``q_norm/k_norm`` with
-    ``qk_norm``)."""
-    h, kv = pad_heads(cfg.n_heads, cfg.n_kv)
+    ``qk_norm``), heads padded to the active tp."""
+    h, kv = pad_heads(cfg.n_heads, cfg.n_kv, get_env().tp_size())
     dh, d = cfg.head_dim, cfg.d_model
     out = {"wq": (d, h, dh), "wk": (d, kv, dh), "wv": (d, kv, dh),
            "wo": (h, dh, d)}
@@ -108,6 +111,21 @@ def attention_shapes(cfg) -> dict[str, tuple[int, ...]]:
         out.update(bq=(h, dh), bk=(kv, dh), bv=(kv, dh))
     if cfg.qk_norm:
         out.update(q_norm=(dh,), k_norm=(dh,))
+    return out
+
+
+def attention_specs(cfg) -> dict[str, tuple]:
+    """Logical partition spec of each attention parameter: q heads and
+    ``wo``'s heads over tp, kv heads replicated across it, the model
+    dimension over fsdp."""
+    out: dict[str, tuple] = {"wq": ("fsdp", "tp", None),
+                             "wk": ("fsdp", None, None),
+                             "wv": ("fsdp", None, None),
+                             "wo": ("tp", None, "fsdp")}
+    if cfg.qkv_bias:
+        out.update(bq=("tp", None), bk=(None, None), bv=(None, None))
+    if cfg.qk_norm:
+        out.update(q_norm=(None,), k_norm=(None,))
     return out
 
 
@@ -301,9 +319,10 @@ def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
     and its ``kv_norm``, the decoupled RoPE key ``w_kr`` [d, dr], the
     up-projections ``w_uk`` [L, h, dn] and ``w_uv`` [L, h, dv], the
     queries ``w_uq`` [q_in, h, dn + dr] (from ``w_dq`` [d, q_lora] and
-    ``q_norm`` where ``q_lora``) and ``wo`` [h, dv, d]."""
+    ``q_norm`` where ``q_lora``) and ``wo`` [h, dv, d]; h padded to a
+    multiple of the active tp."""
     m, d = cfg.mla, cfg.d_model
-    h = cfg.n_heads                       # padded to a multiple of tp = 1
+    h = pad_to(cfg.n_heads, get_env().tp_size())
     dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
     out = {"w_dkv": (d, m.kv_lora), "w_kr": (d, dr),
            "w_uk": (m.kv_lora, h, dn), "w_uv": (m.kv_lora, h, dv),
@@ -311,6 +330,18 @@ def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
            "kv_norm": (m.kv_lora,)}
     if m.q_lora:
         out.update(w_dq=(d, m.q_lora), q_norm=(m.q_lora,))
+    return out
+
+
+def mla_specs(cfg) -> dict[str, tuple]:
+    """Logical partition spec of each MLA parameter (heads over tp)."""
+    out: dict[str, tuple] = {"w_dkv": ("fsdp", None), "w_kr": ("fsdp", None),
+                             "w_uk": (None, "tp", None),
+                             "w_uv": (None, "tp", None),
+                             "w_uq": ("fsdp", "tp", None),
+                             "wo": ("tp", None, "fsdp"), "kv_norm": (None,)}
+    if cfg.mla.q_lora:
+        out.update(w_dq=("fsdp", None), q_norm=(None,))
     return out
 
 
@@ -401,6 +432,12 @@ def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple[int, ...]]:
     return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
 
 
+def mlp_specs() -> dict[str, tuple]:
+    """Logical partition spec of each MLP weight (d_ff over tp)."""
+    return {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+            "w_down": ("tp", "fsdp")}
+
+
 def init_mlp(cfg, generator: torch.Generator, repeats: int, device=None,
              d_ff: int | None = None) -> dict[str, torch.Tensor]:
     """SwiGLU weights stacked [R, ...]: normal·0.02, ``w_down``
@@ -423,14 +460,27 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 def moe_shapes(cfg) -> dict[str, Any]:
     """Router [d, E], stacked experts ``w_gate``/``w_up`` [E, d, fe] and
     ``w_down`` [E, fe, d], and the shared expert's MLP (width
-    n_shared · fe) when the config has one."""
+    n_shared · fe) when the config has one; E padded to a multiple of the
+    active tp."""
     mo, d = cfg.moe, cfg.d_model
-    e = mo.n_experts                  # padded to a multiple of tp = 1
+    e = pad_to(mo.n_experts, get_env().tp_size())
     fe = mo.d_ff_expert or cfg.d_ff
     out: dict[str, Any] = {"router": (d, e), "w_gate": (e, d, fe),
                            "w_up": (e, d, fe), "w_down": (e, fe, d)}
     if mo.n_shared:
         out["shared"] = mlp_shapes(cfg, mo.n_shared * fe)
+    return out
+
+
+def moe_specs(cfg) -> dict[str, Any]:
+    """Logical partition spec of each MoE parameter: experts over tp (the
+    router replicated), the shared expert as an MLP."""
+    out: dict[str, Any] = {"router": (None, None),
+                           "w_gate": ("tp", "fsdp", None),
+                           "w_up": ("tp", "fsdp", None),
+                           "w_down": ("tp", None, "fsdp")}
+    if cfg.moe.n_shared:
+        out["shared"] = mlp_specs()
     return out
 
 
@@ -551,7 +601,10 @@ def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
 
     # Switch-style load-balance aux loss over the real experts
     me = probs[:, :n_real].mean(dim=0)
-    onehot = F.one_hot(eidx, e_pad).float()[..., :n_real]
+    # the one-hot by a scatter: ``F.one_hot`` reads its indices' range
+    # back to the host off the card, an op a dry run on meta cannot take
+    onehot = torch.zeros((t, top_k, e_pad), device=dev).scatter_(
+        -1, eidx[..., None], 1.0)[..., :n_real]
     ce = onehot.sum(dim=1).mean(dim=0)
     aux = n_real * (me * ce).sum()
     return y, aux

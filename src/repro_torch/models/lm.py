@@ -27,6 +27,13 @@ Cross k/v (encdec decode), computed once from the encoder's output:
 
 Layers run as a Python loop over the R repeats: the port has no ``scan``
 to lower, and each layer's selective scan is one kernel launch.
+
+Shapes read the active mesh (``sharding.env.get_env()``) as the
+reference's do: heads and experts are padded to its tp, and
+``param_specs``, ``cache_specs`` and ``cross_kv_specs`` give the logical
+partition spec trees the reference's ``init_params``, ``cache_struct``
+and ``cross_kv_struct`` return beside their shapes. With no mesh active
+every shape is the one-device shape.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.graph import resolve_device
+from ..sharding.env import get_env
 from . import layers as L
 from . import ssm as S
 from .perf import get_perf, set_perf
@@ -100,6 +108,49 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (vp, d)
     return shapes
+
+
+def _layer_specs(cfg: ModelConfig, kind: str, pos: int, *,
+                 cross: bool = False, encoder: bool = False
+                 ) -> dict[str, Any]:
+    """``_layer_shapes``' logical specs: each leaf's spec with a leading
+    None for the repeat axis, which is never split."""
+    def stack(specs):
+        return {k: stack(v) if isinstance(v, dict) else (None,) + v
+                for k, v in specs.items()}
+
+    out: dict[str, Any] = {"norm1": (None, None)}
+    out["mixer"] = stack(S.param_specs(cfg) if kind == "ssm"
+                         else L.mla_specs(cfg) if cfg.mla is not None
+                         else L.attention_specs(cfg))
+    if cross:
+        out["norm_x"] = (None, None)
+        out["cross"] = stack(L.attention_specs(cfg))
+    fk = "dense" if encoder else cfg.ffn_kind(pos)
+    if fk != "none":
+        out["norm2"] = (None, None)
+        out["ffn"] = stack(L.moe_specs(cfg) if fk == "moe"
+                           else L.mlp_specs())
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, Any]:
+    """The logical partition spec of every parameter, in the layout of
+    ``params``: a tuple per leaf of None (replicated), "tp", "fsdp" or
+    "dp" per dimension, the reference's ``init_params`` specs."""
+    _require_ported(cfg)
+    cross = cfg.family == "encdec"
+    blocks = {f"l{i}": _layer_specs(cfg, kind, i, cross=cross)
+              for i, kind in enumerate(cfg.layer_pattern)}
+    specs: dict[str, Any] = {"embed": ("tp", "fsdp"), "blocks": blocks,
+                             "final_norm": (None,)}
+    if cross:
+        specs["enc_blocks"] = {"l0": _layer_specs(cfg, "attn", 0,
+                                                  encoder=True)}
+        specs["enc_final_norm"] = (None,)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("tp", "fsdp")
+    return specs
 
 
 def _init_layer(cfg: ModelConfig, kind: str, pos: int,
@@ -479,7 +530,8 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
     that a server grows by kind, never by matching shapes. Attention:
     (k, v) [R, B, S, KV, dh] bf16; MLA: (c_kv [R, B, S, kv_lora], k_rope
     [R, B, S, dr]) bf16; both with the sequence on axis 2. SSM state has
-    no sequence axis: (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32)."""
+    no sequence axis: (conv [R, B, K-1, Di] bf16, h [R, B, Di, N] f32).
+    KV heads are padded to the active tp."""
     _require_ported(cfg)
     r = cfg.block_repeats
     out = {}
@@ -495,7 +547,7 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int):
                 ((r, batch, s_max, m.kv_lora), torch.bfloat16, 2),
                 ((r, batch, s_max, m.rope_head_dim), torch.bfloat16, 2))
         else:
-            _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+            _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv, get_env().tp_size())
             shape = (r, batch, s_max, kv, cfg.head_dim)
             out[f"l{i}"] = ((shape, torch.bfloat16, 2),
                             (shape, torch.bfloat16, 2))
@@ -508,8 +560,49 @@ def cross_kv_struct(cfg: ModelConfig, batch: int):
     ``cache_struct``'s convention; ``seq_axis`` is None, because their
     length is the encoder's, fixed, and a server never grows them."""
     _require_ported(cfg)
-    _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv)
+    _, kv = L.pad_heads(cfg.n_heads, cfg.n_kv, get_env().tp_size())
     shape = (cfg.block_repeats, batch, cfg.enc_seq, kv, cfg.head_dim)
     return {f"l{i}": ((shape, torch.bfloat16, None),
                       (shape, torch.bfloat16, None))
+            for i in range(len(cfg.layer_pattern))}
+
+
+def _batch_split(batch: int) -> bool:
+    """Whether a batch of ``batch`` sequences splits over the active dp."""
+    dp = get_env().dp_size()
+    return batch % dp == 0 and batch >= dp and dp > 1
+
+
+def cache_specs(cfg: ModelConfig, batch: int):
+    """The logical partition specs of ``cache_struct``'s tensors, in its
+    layout (the reference's policy): the batch over dp when it splits
+    evenly, the attention and MLA sequence over tp; a batch below dp
+    (long-context decode) splits the sequence over (dp, tp). SSM state
+    splits its channels over tp, and its batch only when that splits."""
+    _require_ported(cfg)
+    split = _batch_split(batch)
+    if split:
+        b_spec, s_spec = "dp", "tp"
+    elif get_env().dp_size() > 1:
+        b_spec, s_spec = None, ("dp", "tp")
+    else:
+        b_spec, s_spec = None, "tp"
+    out = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind == "ssm":
+            out[f"l{i}"] = ((None, b_spec if split else None, None, "tp"),
+                            (None, b_spec if split else None, "tp", None))
+        elif cfg.mla is not None:
+            out[f"l{i}"] = ((None, b_spec, s_spec, None),) * 2
+        else:
+            out[f"l{i}"] = ((None, b_spec, s_spec, None, None),) * 2
+    return out
+
+
+def cross_kv_specs(cfg: ModelConfig, batch: int):
+    """The logical partition specs of ``cross_kv_struct``'s tensors: the
+    batch over dp when it splits evenly, nothing else split."""
+    _require_ported(cfg)
+    b_spec = "dp" if _batch_split(batch) else None
+    return {f"l{i}": ((None, b_spec, None, None, None),) * 2
             for i in range(len(cfg.layer_pattern))}

@@ -20,10 +20,13 @@ settings it accepted. What the port reads:
 ``ssm_chunk`` has no counterpart: the reference's chunk is the length of
 its associative scan, while the port's kernel carries the state over the
 whole sequence in one launch (the backward's chunk of saved states is the
-kernel's own, ``kernels.ops.SCAN_CHUNK``). ``sp_activations``,
-``serve_bf16`` and ``serve_replicate_dp_below_gb`` are read by the
-reference's sharding and launch tooling (``repro/launch/specs.py``),
-which the port does not have yet: nothing in the port reads them.
+kernel's own, ``kernels.ops.SCAN_CHUNK``). ``serve_bf16`` and
+``serve_replicate_dp_below_gb`` are read by the dry run's input specs
+(``launch/specs.py``), as the reference's are: a serving cell's
+parameters in bfloat16, and not split over fsdp where the batch cannot
+split over dp and the tp-split weights fit. ``sp_activations`` is read by
+nothing in either package's step (its constraints are sharding hints the
+port does not apply).
 """
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ class PerfConfig:
     # length (no counterpart in the port)
     ssm_bf16: bool = False
     ssm_chunk: int = 256
-    # sequence-parallel activation constraints (read by nothing yet)
+    # sequence-parallel activation constraints (read by nothing)
     sp_activations: bool = False
     # serving: params in bf16, replicated over dp below a footprint (read
-    # by nothing yet)
+    # by launch/specs.py)
     serve_bf16: bool = False
     serve_replicate_dp_below_gb: float = 0.0   # 0 = off
 

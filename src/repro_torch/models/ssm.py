@@ -46,6 +46,16 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
             "out_proj": (d_in, d)}
 
 
+def param_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """Logical partition spec of each mixer parameter: d_inner over tp,
+    the model dimension over fsdp."""
+    return {"in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"),
+            "conv_b": ("tp",), "x_proj": ("tp", None),
+            "dt_proj": (None, "tp"), "dt_bias": ("tp",),
+            "a_log": ("tp", None), "d_skip": ("tp",),
+            "out_proj": ("tp", "fsdp")}
+
+
 def init_ssm(cfg: ModelConfig, generator: torch.Generator, repeats: int,
              device=None) -> dict[str, torch.Tensor]:
     """``repeats`` mixers' parameters, each stacked [R, ...], drawn as the
@@ -133,10 +143,13 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     c_t = proj[..., dt_rank + n:].float().contiguous()
     dt = softplus((dt_r @ p["dt_proj"].to(COMPUTE_DTYPE)).float()
                   + p["dt_bias"][None, None, :])                # [B,S,Di]
-    a = torch.exp(p["a_log"])                                   # positive
+    # exp in the parameters' dtype, then float32 for the kernel, as the
+    # reference's promotions go with bfloat16 serving weights (a no-op on
+    # float32 parameters)
+    a = torch.exp(p["a_log"]).float()                           # positive
     h0 = state[1] if state is not None else None
-    y, new_h = ops.selective_scan(xi.float(), dt, b_t, c_t, a, p["d_skip"],
-                                  h0)
+    y, new_h = ops.selective_scan(xi.float(), dt, b_t, c_t, a,
+                                  p["d_skip"].float(), h0)
 
     y = y.to(COMPUTE_DTYPE) * silu(z)
     out = y @ p["out_proj"].to(COMPUTE_DTYPE)

@@ -51,15 +51,15 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any
 
+from ..launch import mesh as _mesh
 from . import recorder as _rec
 
-# Device peaks for achieved-vs-attainable utilization: the published
-# figures of the NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit — float32
-# (non-tensor-core) 67 TFLOP/s and HBM3 3.35 TB/s, the peaks chip_smoke.py
-# bounds every kernel with.  A card run below 700 W, or another card,
-# reaches less: set the two variables for it.
-PEAK_FLOPS = float(os.environ.get("REPRO_PEAK_FLOPS", 67e12))
-PEAK_HBM_BPS = float(os.environ.get("REPRO_PEAK_BW", 3.35e12))
+# Device peaks for achieved-vs-attainable utilization: the card's float32
+# (non-tensor-core) FLOP/s and HBM bytes/s from ``launch/mesh.py``, the
+# peaks chip_smoke.py bounds every kernel with.  A card run below its
+# power limit, or another card, reaches less: set the two variables for it.
+PEAK_FLOPS = float(os.environ.get("REPRO_PEAK_FLOPS", _mesh.FP32_FLOPS))
+PEAK_HBM_BPS = float(os.environ.get("REPRO_PEAK_BW", _mesh.HBM_BW))
 
 _CACHE_CAP = 256
 

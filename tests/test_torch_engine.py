@@ -209,7 +209,12 @@ def test_package_imports_no_jax_and_no_reference():
                 "repro_torch.launch.serve", "repro_torch.engine.registry",
                 "repro_torch.obs.recorder", "repro_torch.gserve.server",
                 "repro_torch.obs.monitor", "repro_torch.stream.session",
-                "repro_torch.stream.patch"):
+                "repro_torch.stream.patch", "repro_torch.sharding.env",
+                "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                "repro_torch.launch.dryrun", "repro_torch.roofline.count",
+                "repro_torch.roofline.analysis",
+                "repro_torch.roofline.report",
+                "repro_torch.roofline.experiments_md"):
         assert mod in seen["mods"]
 
 

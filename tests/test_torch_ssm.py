@@ -250,6 +250,29 @@ def test_ssm_block_decode_matches_reference_decode_branch(layer):
                                   .float().numpy())
 
 
+def test_ssm_block_with_bfloat16_parameters_matches_reference(layer):
+    """Serving weights in bfloat16 (the TUNED profile's ``serve_bf16``):
+    A = exp(a_log) rounds in bfloat16 and D is widened, as the reference's
+    promotions go, so prefill and decode match its block; the scan kernel
+    takes float32 only, so before this the port raised."""
+    cfg, tcfg, p, tp = layer
+    pb = {k: np.asarray(jnp.asarray(v).astype(jnp.bfloat16))
+          for k, v in p.items()}
+    tpb = {k: v.bfloat16() for k, v in tp.items()}
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 9, cfg.d_model)).astype(np.float32)
+    jy, jstate = RS.ssm_block(cfg, pb, jnp.asarray(x).astype(jnp.bfloat16))
+    ty, tstate = TS.ssm_block(tcfg, tpb, torch.from_numpy(x).bfloat16())
+    _close_to_max(ty.float().numpy(), jy.astype(jnp.float32))
+    _close_to_max(tstate[1].numpy(), jstate[1])
+    x1 = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    jy, _ = RS.ssm_block(cfg, pb, jnp.asarray(x1).astype(jnp.bfloat16),
+                         state=jstate)
+    ty, _ = TS.ssm_block(tcfg, tpb, torch.from_numpy(x1).bfloat16(),
+                         state=tstate)
+    _close_to_max(ty.float().numpy(), jy.astype(jnp.float32))
+
+
 def test_ssm_block_runs_the_scan_once_per_call(layer, monkeypatch):
     _, tcfg, _, tp = layer
     calls = []

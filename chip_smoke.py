@@ -392,6 +392,57 @@ non-zero with no "ok" line):
               step's wall time (the median of DRYRUN_WARM steps), and the
               temp estimate against the step's rise of
               ``max_memory_allocated`` over what was allocated before it.
+20. shard   — sharded execution over ``torch.distributed`` (``sharding.env``
+              live meshes), every rank a process spawned here on card 0
+              after the kernels are built (world 1 over NCCL, world 2 over
+              gloo with CUDA tensors: NCCL refuses two ranks on one card).
+              First, in this process, qwen2-moe-a2.7b's one-device prefill
+              logits, drops and LM_NEW generated tokens on seeded prompts,
+              and the one-device first train step of falcon-mamba-7b cut
+              to SHARD_SSM_LAYERS. qwen3-0.6b whole under TUNED at
+              TRAIN_BATCH x TRAIN_SEQ, every rank drawing the weights from
+              the seeded generator and keeping its shard: at world 1,
+              SHARD_STEPS one-device steps and SHARD_STEPS steps at a live
+              1 x 1 mesh; at world 2, SHARD_STEPS steps at each of
+              SHARD_MESHES; the first step's loss within SHARD_LOSS_REL
+              and grad_norm within SHARD_GRAD_REL of the one-device
+              step's (the later steps' printed beside theirs), every rank
+              the same losses; warm step s, each rank's peak MiB,
+              each collective kind's bytes and device ms (CUDA events)
+              beside the dry run's ``collective_bytes`` rule for the same
+              step. At world 2 also: falcon-mamba-7b cut to
+              SHARD_SSM_LAYERS, one train step at SHARD_MOE_MESH (the
+              launch counters zeroed just before it and read just after:
+              ``selective_scan_bwd`` once a layer, ``selective_scan``
+              twice (the forward and the remat recompute) on
+              this rank's d_inner / 2 channels, its first call's arguments
+              held against the plain scan within SCAN_REL), the loss and
+              grad_norm against the one-device step's; qwen2-moe-a2.7b
+              whole served at SHARD_MOE_MESH (the ranks draw the weights
+              one after another): on the lm phase's prompts the capacity
+              the one-device call's (dp = 1) and the drops per layer; on
+              LM_DROPFREE prompts, which no capacity can drop, the
+              gathered prefill logits within F32_DECODE_REL of the
+              one-device prefill's largest logit in float32 compute. In
+              bfloat16, the lm phase's prompts with the one-device run's
+              experts replayed (``layers.replay_routing``) within
+              SHARD_MOE_REL of its largest logit (the one-device
+              prefill's own bfloat16 error against float32 compute on
+              the same experts printed beside), with its drops; with
+              each run routing on its own (the logits printed), on both
+              prompt sets, the routing against the one-device run's: a
+              token whose top-k holds a near-tie may choose another
+              expert when the tp all-reduces round otherwise, which
+              changes it and, through attention and the capacity slots,
+              later tokens. Each token that did so at the first layer
+              where any did had top-k router-logit gaps in the two runs
+              that add to at most two bfloat16 ulps;
+              SHARD_DECODE_STEPS decode steps (ms a step),
+              ``Engine.generate``'s tokens against the one-device ones
+              (the count that agree), each rank's peak MiB while drawing
+              and while serving, the prefill's collective bytes beside
+              the rule's. The kernels line's selective_scan rows gain
+              ``shard_launches`` and ``shard_shape``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -400,6 +451,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4982,6 +5034,569 @@ def phase_dryrun() -> dict:
     return {"cells": cells}
 
 
+#: The shard phase: sharded execution over torch.distributed, every rank a
+#: process on card 0 (NCCL refuses two ranks on one card, so world 2 runs
+#: over gloo with CUDA tensors). qwen3-0.6b whole under TUNED at the train
+#: phase's TRAIN_BATCH x TRAIN_SEQ: world 1 over NCCL at 1 x 1 (one-device
+#: steps first, in the same rank), then world 2 over gloo at each of
+#: SHARD_MESHES, SHARD_STEPS steps each; qwen2-moe-a2.7b whole served at
+#: SHARD_MOE_MESH; falcon-mamba-7b at full width cut to SHARD_SSM_LAYERS,
+#: one train step at SHARD_MOE_MESH's shape.
+SHARD_MESHES = ((2, 1), (1, 2))
+SHARD_STEPS = 3
+SHARD_MOE_MESH = (1, 2)
+SHARD_DECODE_STEPS = 8
+SHARD_SSM_LAYERS = 8
+#: tests/test_torch_train_families.py's bounds: the loss relative LOSS_REL
+#: (bfloat16 logits, float32 sums in another order) and grad_norm GRAD_REL.
+SHARD_LOSS_REL, SHARD_GRAD_REL = 1e-4, 3e-2
+#: The served MoE at SHARD_MOE_MESH with the one-device experts replayed,
+#: against the one-device prefill: bf16_rel counts one output a layer
+#: that may round the other way; at tp = 2 a layer's two bfloat16 regions
+#: (attention and the shared expert) each round both ranks' parts and
+#: then their sum, so two a layer: bf16_rel(2 x 24 layers).
+SHARD_MOE_REL = bf16_rel(2 * 24)
+
+
+def _rule_bytes(cfg, dims, kind: str, batch: int, seq: int) -> dict:
+    """``roofline.analysis.collective_bytes`` of one step of ``kind`` on the
+    (data, model) mesh ``dims``: the dry run's rule at these shapes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.roofline.analysis import collective_bytes
+    from repro_torch.sharding.env import Mesh, use_mesh
+    mesh = Mesh(tuple(dims), ("data", "model"))
+    shape = ShapeConfig("shard", seq, batch, kind)
+    with use_mesh(mesh):
+        spec = input_specs(cfg.name, "shard", cfg=cfg, shape=shape)
+        return collective_bytes(cfg, shape, mesh, spec["params"])
+
+
+def _timed_collectives(fn):
+    """(fn's result, seconds, {kind: bytes}, {kind: device ms}): ``fn`` run
+    with the collectives' byte counter zeroed and CUDA events around each
+    collective (``collectives.record_events``)."""
+    from repro_torch.core import collectives as C
+    C.reset_bytes()
+    events: list = []
+    with C.record_events(events):
+        out, t = wall(fn)
+    ms = dict.fromkeys(C.KINDS, 0.0)
+    for kind, start, end in events:
+        ms[kind] += start.elapsed_time(end)
+    return out, t, dict(C.BYTES), ms
+
+
+def _shard_dense(rank: int, task: dict) -> dict:
+    """qwen3-0.6b: one-device steps first where ``task`` asks (world 1),
+    then SHARD_STEPS steps at each live mesh of ``task``, every rank
+    drawing the same weights from the seeded generator and keeping its
+    shard; loss and grad_norm per step, warm step s, peak MiB, each kind's
+    bytes and device ms against the dry run's rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import lm
+    from repro_torch.models.perf import BASELINE, TUNED, set_perf
+    from repro_torch.sharding.env import Mesh, use_mesh
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    dev = task["dev"]
+    cfg = get_config(task["arch"], smoke=task["smoke"])
+    ocfg = O.AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS)
+    pipe = SyntheticPipeline(cfg, DataConfig(task["batch"], task["seq"],
+                                             SEED), dev)
+    out = {}
+
+    def steps(params):
+        opt = O.init_opt_state(params)
+        rows = []
+        for step in range(task["steps"]):
+            (params, opt, m), t, nbytes, ms = _timed_collectives(
+                lambda: TS.train_step(cfg, ocfg, params, opt,
+                                      pipe.batch_at(step)))
+            rows.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]), "step_s": t,
+                         "bytes": nbytes, "collective_ms": ms})
+        return rows
+
+    set_perf(TUNED)
+    try:
+        if task["one_device"]:
+            torch.cuda.reset_peak_memory_stats()
+            params = lm.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(SEED), dev)
+            out["one_device"] = {"steps": steps(params),
+                                 "peak_mib": peak_mib()}
+            del params
+            torch.cuda.empty_cache()
+        for dims in task["meshes"]:
+            mesh = Mesh(tuple(dims), ("data", "model"))
+            with use_mesh(mesh, mesh.connect("cuda")):
+                torch.cuda.reset_peak_memory_stats()
+                params = lm.init_params(cfg, torch.Generator(device=dev)
+                                        .manual_seed(SEED), dev)
+                rows = steps(params)
+                del params
+            torch.cuda.empty_cache()
+            out["x".join(map(str, dims))] = {
+                "steps": rows, "peak_mib": peak_mib(),
+                "warm_step_s": float(np.median([r["step_s"]
+                                                for r in rows[1:]])),
+                "rule_bytes": _rule_bytes(cfg, dims, "train",
+                                          task["batch"], task["seq"])}
+    finally:
+        set_perf(BASELINE)
+    return out
+
+
+def _route_sets(routes) -> list[dict]:
+    """Each MoE call's routing on the host, as ``_route_diff`` reads it:
+    the experts each token chose, sorted, and the router's logits."""
+    return [{"experts": r.expert_idx.sort(-1)[0].cpu(),
+             "logits": r.logits.cpu()} for r in routes]
+
+
+def _bf16_ulp(v: float) -> float:
+    """One bfloat16 ulp at |v| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 0.0
+
+
+def _route_diff(one: list, got: list, top_k: int) -> dict:
+    """Two prefills' routing of the same prompts (``_route_sets``), layer
+    by layer: how many tokens chose other experts, and, at the first layer
+    where any did, whose inputs differ by rounding alone (no token was
+    routed otherwise before it), each such token's gap between its k-th
+    and (k+1)-th router logit in either run beside one bfloat16 ulp of
+    the larger."""
+    flips, first = [], None
+    for layer, (a, g) in enumerate(zip(one, got)):
+        same = (a["experts"] == g["experts"]).all(-1)
+        flips.append(int((~same).sum()))
+        if first is None and flips[-1]:
+            rows = []
+            for t in torch.nonzero(~same).flatten().tolist():
+                row = {"token": t}
+                for name, r in (("one_device", a), ("sharded", g)):
+                    v = r["logits"][t].sort(descending=True)[0]
+                    kth, nxt = float(v[top_k - 1]), float(v[top_k])
+                    row[name] = {"kth": kth, "gap": kth - nxt,
+                                 "ulp": _bf16_ulp(max(abs(kth), abs(nxt)))}
+                rows.append(row)
+            first = {"layer": layer, "tokens": rows}
+    return {"flips": flips, "first_flip": first}
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _shard_moe(rank: int, task: dict) -> dict:
+    """qwen2-moe-a2.7b served at ``task``'s mesh: the ranks draw the
+    weights one after another (each keeps its experts; two at once would
+    hold two whole expert leaves beside both shards), then the prefill of
+    LM_DROPFREE prompts, which no capacity can drop, in bfloat16 and in
+    float32, and of the lm phase's prompts: the capacity, at dp = 1 the
+    one-device call's, and the drops per layer. Each bfloat16 prefill's
+    routing is compared with the one-device run's (``_route_diff``): the
+    tp all-reduces round partial sums in another order, so a token whose
+    top-k holds a bfloat16 near-tie may choose another expert, which
+    changes its output and, through attention and the experts' capacity
+    slots, later tokens'. The lm phase's prompts are prefilled once more
+    with the one-device run's experts replayed (``replay_routing``),
+    which leaves rounding as the only difference. Then
+    SHARD_DECODE_STEPS decode steps and ``Engine.generate`` (the tokens
+    that agree with the one-device run's)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import serve_step as SS
+    from repro_torch.sharding.env import Mesh, use_mesh
+
+    dev = task["dev"]
+    cfg = get_config(task["arch"], smoke=task["smoke"])
+    ref = torch.load(task["reference"])        # on the host until compared
+    prompts = ref["prompts"].to(dev)
+    mesh = Mesh(tuple(task["mesh"]), ("data", "model"))
+    with use_mesh(mesh, mesh.connect("cuda")):
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params, t_init = wall(lambda: lm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(SEED),
+                    dev))
+                torch.cuda.empty_cache()
+            dist.barrier()
+        init_peak = peak_mib()
+        torch.cuda.reset_peak_memory_stats()
+        free_in = ref["dropfree_prompts"].to(dev)
+        with torch.no_grad(), L.record_routing() as free_routes:
+            free = lm.gather_vocab(SS.prefill(cfg, params, free_in)[0])
+        free_diff = _route_diff(ref["dropfree_routes"],
+                                _route_sets(free_routes), cfg.moe.top_k)
+        free_diff["max_rel_vs_one_device"] = _max_rel(
+            free, ref.pop("dropfree_logits").to(dev))
+        with torch.no_grad(), _compute_dtype(torch.float32):
+            free32 = lm.gather_vocab(SS.prefill(cfg, params, free_in)[0])
+        rel_f32 = _max_rel(free32, ref.pop("dropfree_f32").to(dev))
+        del free, free32, free_routes
+        # the one-device run's experts replayed: rounding alone apart
+        with torch.no_grad(), L.replay_routing(
+                [r["experts"] for r in ref["routes"]]), \
+                L.record_routing() as replayed:
+            full = lm.gather_vocab(SS.prefill(cfg, params, prompts)[0])
+        replay = {"drops": [int((~r.keep).sum()) for r in replayed],
+                  "max_rel_vs_one_device": _max_rel(full, ref["logits"]
+                                                    .to(dev)),
+                  "one_device_bf16_vs_f32": ref["bf16_floor"]}
+        del full, replayed
+        with torch.no_grad(), L.record_routing() as routes:
+            ((logits, caches), t_prefill, nbytes, coll_ms) = \
+                _timed_collectives(lambda: SS.prefill(cfg, params, prompts))
+        drops = [int((~r.keep).sum()) for r in routes]
+        capacity = routes[0].capacity
+        diff = _route_diff(ref.pop("routes"), _route_sets(routes),
+                           cfg.moe.top_k)
+        del routes
+        full = lm.gather_vocab(logits)
+        diff["max_rel_vs_one_device"] = _max_rel(full, ref.pop("logits")
+                                                 .to(dev))
+        b, s = prompts.shape
+        with torch.no_grad():
+            tok = SS.greedy_token(logits[:, -1:, :], cfg.vocab)
+            caches = SS.grow_caches(cfg, caches, b, s + LM_NEW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(SHARD_DECODE_STEPS):
+                lg, caches = SS.decode(cfg, params, tok, caches, s + i)
+                tok = SS.greedy_token(lg[:, -1:, :], cfg.vocab)
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0) / SHARD_DECODE_STEPS
+        del caches, logits, full
+        tokens, t_gen = wall(lambda: SS.Engine(cfg, params, s + LM_NEW)
+                             .generate(prompts, LM_NEW))
+        agree = int((tokens.cpu() == ref["tokens"]).sum())
+        del params
+    torch.cuda.empty_cache()
+    return {"init_s": t_init, "prefill_s": t_prefill,
+            "prefill_bytes": nbytes, "prefill_collective_ms": coll_ms,
+            "prefill_rule_bytes": _rule_bytes(cfg, task["mesh"], "prefill",
+                                              b, s),
+            "prefill_routes": diff, "prefill_replayed": replay,
+            "dropfree_prompts": list(ref["dropfree_prompts"].shape),
+            "dropfree_routes": free_diff,
+            "dropfree_f32_max_rel_vs_one_device": rel_f32, "drops": drops,
+            "drops_one_device": ref["drops"], "capacity": capacity,
+            "capacity_one_device": ref["capacity"], "decode_ms": decode_ms,
+            "generate_s": t_gen, "tokens_agree": agree,
+            "tokens": int(tokens.numel()), "init_peak_mib": init_peak,
+            "serve_peak_mib": peak_mib()}
+
+
+def _shard_ssm(rank: int, task: dict) -> dict:
+    """falcon-mamba-7b at full width cut to ``task["layers"]``: one train
+    step at ``task``'s mesh with the launch counters zeroed just before and
+    read just after, its first scan call's arguments (this rank's d_inner
+    / tp channels) kept and the kernel held against its plain version on
+    them; the loss against the one-device step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.sharding.env import Mesh, use_mesh
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    dev = task["dev"]
+    cfg = dataclasses.replace(get_config(task["arch"], smoke=task["smoke"]),
+                              n_layers=task["layers"])
+    pipe = SyntheticPipeline(cfg, DataConfig(task["batch"], task["seq"],
+                                             SEED), dev)
+    ocfg = O.AdamWConfig(warmup_steps=1, total_steps=TRAIN_SSM_STEPS)
+    mesh = Mesh(tuple(task["mesh"]), ("data", "model"))
+    captured, real = [], ops.selective_scan
+
+    def capture(*args):
+        if not captured:
+            captured.append(tuple(None if t is None else t.detach().clone()
+                                  for t in args))
+        return real(*args)
+
+    with use_mesh(mesh, mesh.connect("cuda")):
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(SEED), dev)
+        opt = O.init_opt_state(params)
+        ops.reset_launches()
+        ops.selective_scan = capture
+        try:
+            (_, _, m), t, nbytes, ms = _timed_collectives(
+                lambda: TS.train_step(cfg, ocfg, params, opt,
+                                      pipe.batch_at(0)))
+        finally:
+            ops.selective_scan = real
+        launches = dict(ops.LAUNCHES)
+        del params, opt
+    torch.cuda.empty_cache()
+    got = ops.selective_scan(*captured[0])
+    want = ref.selective_scan_ref(*captured[0])
+    err = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "step_s": t, "bytes": nbytes, "collective_ms": ms,
+            "launches": launches, "scan_shape": list(captured[0][0].shape)
+            + [captured[0][4].shape[1]], "scan_max_rel_err": err,
+            "peak_mib": peak_mib()}
+
+
+_SHARD_TASKS = {"dense": _shard_dense, "moe": _shard_moe, "ssm": _shard_ssm}
+
+
+def _shard_rank(rank: int, world: int, backend: str, rdzv: str, job: str,
+                out_prefix: str) -> None:
+    """One rank of the shard phase (a process of its own): joins the
+    group, runs the job's tasks in order and writes its rows."""
+    import gc
+    import torch.distributed as dist
+    # before CUDA starts here: free pages go back to the card at
+    # empty_cache, so a rank that drew a whole leaf and kept its shard
+    # holds only the shard while the next rank draws
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    _join_group(backend, rdzv, world, rank)
+    try:
+        tasks = json.loads(Path(job).read_text())
+        rows = {}
+        for task in tasks:
+            rows[task["name"]] = _SHARD_TASKS[task["kind"]](rank, task)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        Path(f"{out_prefix}_{rank}.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_spawn(tmp: str, world: int, backend: str, tasks: list,
+                 tag: str = "") -> list:
+    """Run ``tasks`` on ``world`` fresh ranks of ``backend``; their rows."""
+    import torch.multiprocessing as mp
+    name = f"{world}{tag}"
+    job = f"{tmp}/job_{name}.json"
+    Path(job).write_text(json.dumps(tasks))
+    mp.spawn(_shard_rank, args=(world, backend, f"{tmp}/rdzv_{name}", job,
+                                f"{tmp}/{name}"), nprocs=world)
+    return [json.loads(Path(f"{tmp}/{name}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def _shard_references(tmp: str, dev: str = "cuda", smoke: bool = False
+                      ) -> dict:
+    """In this process, before any rank: qwen2-moe-a2.7b's one-device
+    prefill logits, drops and generated tokens on seeded prompts (saved
+    for the ranks), and the one-device loss of the cut falcon-mamba's
+    first train step; each model freed after."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import serve_step as SS
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config(LM_MOE_ARCH, smoke=smoke)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+    params = lm.init_params(cfg, torch.Generator(device=dev)
+                            .manual_seed(SEED), dev)
+    with torch.no_grad(), L.record_routing() as routes:
+        logits = SS.prefill(cfg, params, prompts)[0]
+    # the model's own bfloat16 error: against float32 compute on the same
+    # experts (the replay keeps a near-tie from routing float32 otherwise)
+    with torch.no_grad(), _compute_dtype(torch.float32), L.replay_routing(
+            [r.expert_idx for r in routes]):
+        bf16_floor = _max_rel(logits, SS.prefill(cfg, params, prompts)[0])
+    logits = logits.cpu()
+    free = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, LM_DROPFREE))
+    with torch.no_grad(), L.record_routing() as free_routes:
+        free_logits = SS.prefill(cfg, params, free.to(dev))[0].cpu()
+    with torch.no_grad(), _compute_dtype(torch.float32):
+        free_f32 = SS.prefill(cfg, params, free.to(dev))[0].cpu()
+    tokens = SS.Engine(cfg, params, LM_PROMPT + LM_NEW).generate(prompts,
+                                                                 LM_NEW)
+    torch.save({"prompts": prompts.cpu(), "logits": logits,
+                "routes": _route_sets(routes),
+                "dropfree_prompts": free, "dropfree_logits": free_logits,
+                "dropfree_f32": free_f32,
+                "dropfree_routes": _route_sets(free_routes),
+                "tokens": tokens.cpu(), "capacity": routes[0].capacity,
+                "drops": [int((~r.keep).sum()) for r in routes],
+                "bf16_floor": bf16_floor},
+               f"{tmp}/moe_reference.pt")
+    del params, logits, routes, tokens, free_routes
+    torch.cuda.empty_cache()
+    scfg = dataclasses.replace(get_config(TRAIN_SSM_ARCH, smoke=smoke),
+                               n_layers=SHARD_SSM_LAYERS)
+    params = lm.init_params(scfg, torch.Generator(device=dev)
+                            .manual_seed(SEED), dev)
+    pipe = SyntheticPipeline(scfg, DataConfig(TRAIN_SSM_BATCH, TRAIN_SSM_SEQ,
+                                              SEED), dev)
+    m = TS.train_step(scfg, O.AdamWConfig(
+        warmup_steps=1, total_steps=TRAIN_SSM_STEPS), params,
+        O.init_opt_state(params), pipe.batch_at(0))[2]
+    out = {"moe": f"{tmp}/moe_reference.pt", "ssm_loss": float(m["loss"]),
+           "ssm_grad_norm": float(m["grad_norm"])}
+    del params, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_dense_log(w1, w2) -> None:
+    """The dense runs of worlds 1 and 2 against world 1's one-device
+    steps, logged and held."""
+    one = [r["loss"] for r in w1[0]["dense"]["one_device"]["steps"]]
+    one_gn = [r["grad_norm"] for r in w1[0]["dense"]["one_device"]["steps"]]
+    runs = {"1x1 nccl": (w1[0]["dense"]["1x1"],
+                         [w1[0]["dense"]["1x1"]["peak_mib"]])}
+    for dims in SHARD_MESHES:
+        m = "x".join(map(str, dims))
+        for r, rows in enumerate(w2):
+            require([x["loss"] for x in rows["dense"][m]["steps"]]
+                    == [x["loss"] for x in w2[0]["dense"][m]["steps"]],
+                    f"shard {m}: rank {r} reports another loss")
+        runs[f"{m} gloo"] = (w2[0]["dense"][m],
+                             [rows["dense"][m]["peak_mib"] for rows in w2])
+    for name, (run, peaks) in runs.items():
+        losses = [r["loss"] for r in run["steps"]]
+        gns = [r["grad_norm"] for r in run["steps"]]
+        rel = [abs(a - b) / b for a, b in zip(losses, one)]
+        gn_rel = [abs(a - b) / b for a, b in zip(gns, one_gn)]
+        # the first step is held: the same weights and batch. After one
+        # update the runs part: at step 1 AdamW moves every element by
+        # ±lr, so a gradient whose sign a last-bit difference flips moves
+        # its weight the other way (even at 1 x 1, whose cross-entropy
+        # rounds otherwise), and those moves compound; later steps print
+        log({"phase": "shard.dense", "arch": TRAIN_ARCH, "mesh": name,
+             "batch": [TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
+             "one_device_losses": one, "loss_rel": rel,
+             "grad_norms": gns, "one_device_grad_norms": one_gn,
+             "grad_norm_rel": gn_rel, "warm_step_s": run["warm_step_s"],
+             "step_s": [r["step_s"] for r in run["steps"]],
+             "one_device_step_s": [r["step_s"] for r in
+                                   w1[0]["dense"]["one_device"]["steps"]],
+             "peak_mib_ranks": peaks,
+             "one_device_peak_mib": w1[0]["dense"]["one_device"]["peak_mib"],
+             "bytes": run["steps"][-1]["bytes"],
+             "collective_ms": run["steps"][-1]["collective_ms"],
+             "rule_bytes": run["rule_bytes"]})
+        require(rel[0] <= SHARD_LOSS_REL and gn_rel[0] <= SHARD_GRAD_REL,
+                f"shard {name}: first loss {losses[0]} / grad norm {gns[0]} "
+                f"against the one-device step's {one[0]} / {one_gn[0]}")
+
+
+def _shard_ssm_log(w2, refs) -> None:
+    ssm = w2[0]["ssm"]
+    ssm_rel = abs(ssm["loss"] - refs["ssm_loss"]) / refs["ssm_loss"]
+    log({"phase": "shard.ssm", "arch": TRAIN_SSM_ARCH,
+         "layers": SHARD_SSM_LAYERS, "mesh": list(SHARD_MOE_MESH),
+         "batch": [TRAIN_SSM_BATCH, TRAIN_SSM_SEQ],
+         "one_device_loss": refs["ssm_loss"], "loss_rel": ssm_rel,
+         "one_device_grad_norm": refs["ssm_grad_norm"],
+         "ranks": [rows["ssm"] for rows in w2]})
+    require(ssm_rel <= SHARD_LOSS_REL and abs(
+        ssm["grad_norm"] - refs["ssm_grad_norm"])
+        <= SHARD_GRAD_REL * refs["ssm_grad_norm"],
+        f"shard ssm: loss {ssm['loss']} / grad norm {ssm['grad_norm']} "
+        f"against {refs['ssm_loss']} / {refs['ssm_grad_norm']}")
+    for rows in w2:
+        s = rows["ssm"]
+        # the forward and the remat recompute scan once a layer each
+        require(s["launches"]["selective_scan_bwd"] == SHARD_SSM_LAYERS
+                and s["launches"]["selective_scan"] == 2 * SHARD_SSM_LAYERS
+                and s["scan_max_rel_err"] <= SCAN_REL,
+                f"shard ssm rank: launches {s['launches']}, the scan on "
+                f"{s['scan_shape']} within {s['scan_max_rel_err']}")
+
+
+def _shard_moe_log(w2m) -> None:
+    """The MoE served at SHARD_MOE_MESH against one device, logged and
+    held: float32 compute on the drop-free prompts within F32_DECODE_REL;
+    in bfloat16, the prefill with the one-device run's experts replayed
+    within SHARD_MOE_REL of the largest one-device logit, with the
+    one-device drops (the one-device prefill's own bfloat16 error against
+    float32 compute printed beside); and,
+    with each run routing on its own, on both prompt sets, each token that
+    chose other experts at the first layer where any did sat on a near-tie
+    that rounding broke the other way: its two runs' top-k gaps add to at
+    most their two bfloat16 ulps (each logit moved by an ulp at most)."""
+    moe = [rows["moe"] for rows in w2m]
+    log({"phase": "shard.moe", "arch": LM_MOE_ARCH,
+         "mesh": list(SHARD_MOE_MESH), "prompts": [LM_BATCH, LM_PROMPT],
+         "bound": SHARD_MOE_REL, "one_region_bound": bf16_rel(24),
+         "ranks": moe})
+    for r in moe:
+        require(r["dropfree_f32_max_rel_vs_one_device"] <= F32_DECODE_REL,
+                f"shard moe: the float32 drop-free prefill "
+                f"{r['dropfree_f32_max_rel_vs_one_device']} of the largest "
+                "logit from the one-device prefill")
+        rep = r["prefill_replayed"]
+        require(rep["max_rel_vs_one_device"] <= SHARD_MOE_REL
+                and rep["drops"] == r["drops_one_device"],
+                f"shard moe: the prefill with the one-device routing "
+                f"replayed {rep['max_rel_vs_one_device']} of the largest "
+                f"logit from the one-device prefill (held to "
+                f"{SHARD_MOE_REL}), drops {rep['drops']}")
+        for key in ("prefill_routes", "dropfree_routes"):
+            first = r[key]["first_flip"]
+            for row in (first["tokens"] if first else []):
+                one, mine = row["one_device"], row["sharded"]
+                require(one["gap"] + mine["gap"] <= one["ulp"] + mine["ulp"],
+                        f"shard moe {key}: token {row['token']} chose "
+                        f"other experts at layer {first['layer']} with "
+                        f"top-k gaps wider than a near-tie: {row}")
+        require(r["capacity"] == r["capacity_one_device"],
+                f"shard moe at dp = 1: capacity {r['capacity']}, one "
+                f"device {r['capacity_one_device']}")
+
+
+def phase_shard(dev: str = "cuda", smoke: bool = False) -> dict:
+    """Sharded execution (phase 20; ``smoke`` runs the SMOKE configs).
+    Each world's results are logged and held as soon as its ranks end.
+    Returns the sharded SSM step's scan launches and local shape for the
+    kernels line."""
+    import tempfile
+    torch.cuda.empty_cache()
+    base = {"dev": dev, "smoke": smoke}
+    dense = dict(base, kind="dense", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                 seq=TRAIN_SEQ, steps=SHARD_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        refs, t_ref = wall(lambda: _shard_references(tmp, dev, smoke))
+        w1, t_w1 = wall(lambda: _shard_spawn(tmp, 1, "nccl", [dict(
+            dense, name="dense", one_device=True, meshes=[[1, 1]])]))
+        w2, t_w2 = wall(lambda: _shard_spawn(tmp, 2, "gloo", [
+            dict(dense, name="dense", one_device=False,
+                 meshes=[list(m) for m in SHARD_MESHES]),
+            dict(base, name="ssm", kind="ssm", arch=TRAIN_SSM_ARCH,
+                 layers=SHARD_SSM_LAYERS, batch=TRAIN_SSM_BATCH,
+                 seq=TRAIN_SSM_SEQ, mesh=list(SHARD_MOE_MESH))]))
+        _shard_dense_log(w1, w2)
+        _shard_ssm_log(w2, refs)
+        # fresh processes: the experts' shards leave room for one whole
+        # expert leaf and its shard while a rank draws them, no more
+        w2m, t_w2m = wall(lambda: _shard_spawn(tmp, 2, "gloo", [
+            dict(base, name="moe", kind="moe", arch=LM_MOE_ARCH,
+                 mesh=list(SHARD_MOE_MESH), reference=refs["moe"])],
+            tag="moe"))
+        _shard_moe_log(w2m)
+    log({"phase": "shard", "wall_s": {"references": t_ref, "world1": t_w1,
+                                      "world2": t_w2, "world2_moe": t_w2m}})
+    ssm = w2[0]["ssm"]
+    return {"scan_launches": ssm["launches"],
+            "scan_shape": ssm["scan_shape"]}
+
 def main() -> int:
     card = phase_device()
     g, owner, plan, launches, main_results = phase_main()
@@ -5012,6 +5627,11 @@ def main() -> int:
             row["train_launches"] = train["selective_scan_launches"]
     kernel_line["kernels"].append(train["row"])
     phase_dryrun()
+    shard = phase_shard()
+    for row in kernel_line["kernels"]:
+        if row["name"] in ("selective_scan", "selective_scan_bwd"):
+            row["shard_launches"] = shard["scan_launches"][row["name"]]
+            row["shard_shape"] = shard["scan_shape"]
     phase_cpu_equal()
     _dist_cpu_equal()
     for arch in (LM_ARCH, LM_MOE_ARCH, LM_DENSE_ARCH, LM_HYBRID_ARCH,

@@ -11,9 +11,14 @@ such as ``OptState`` too, as the reference's flattening meets the tuple
 case first) by index. bfloat16 leaves are stored as their raw 16 bits
 (``u2``) under dtype ``"bfloat16"``.
 
-``restore(template, device=...)`` puts the leaves on one device; the
-reference's elastic re-shard (``shardings=``) waits for the port's
-launch tooling.
+``restore(template, device=...)`` puts the leaves on one device. On a
+live mesh (``sharding.env``) both take ``shardings=``, a tree of
+``sharding.env.Placement`` in the tree's layout (``lm.placements``; a
+scalar's is ``Placement((), ())``): ``save`` gathers each leaf from every
+rank's shard and rank 0 alone writes it, so the files are the reference's
+full leaves; ``restore`` reads full leaves and keeps this rank's shard,
+the reference's elastic re-shard, so a checkpoint written at one mesh
+restores at another (or on one device).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.graph import resolve_device
+from ..sharding.env import get_env
 
 
 def _flatten(tree, prefix=""):
@@ -79,15 +85,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             shardings: Any = None) -> None:
         """Write ``tree`` as step ``step``. The leaves are copied to host
         memory first; the files are written by a background thread unless
-        ``blocking`` (or ``async_write`` is off), never two at once."""
+        ``blocking`` (or ``async_write`` is off), never two at once. With
+        ``shardings`` (a live mesh) every rank calls it: each leaf is
+        gathered whole, rank 0 writes, and all ranks return once the step
+        is published."""
+        places = None if shardings is None else _flatten(shardings)
         host = {}
         for k, v in _flatten(tree).items():
+            if places is not None:
+                v = places[k].gather(v)
             bf16 = isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
             host[k] = (_to_host(v), bf16)
         self.wait()                      # never two writers in flight
+        if places is not None and get_env().is_live:
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                self._write(step, host)
+            dist.barrier()
+            return
         if self.async_write and not blocking:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
@@ -135,11 +154,16 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, template: Any, step: int | None = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """The checkpoint of ``step`` (None: the latest) in the structure
         of ``template`` (whose leaves give the expected shapes), as
-        tensors of the stored dtypes on ``device`` (None: the card)."""
+        tensors of the stored dtypes on ``device`` (None: the card). With
+        ``shardings`` (a live mesh) each stored leaf must have its
+        placement's full shape, and this rank keeps its shard of it (the
+        template's leaves are shards)."""
         dev = resolve_device(device)
+        places = None if shardings is None else _flatten(shardings)
+        env = get_env()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -152,13 +176,20 @@ class CheckpointManager:
                 raise KeyError(f"checkpoint step {step} has no leaf {k!r}")
             info = manifest[k]
             arr = np.load(os.path.join(base, info["file"]))
-            if tuple(arr.shape) != tuple(tmpl.shape):
+            want = tuple(tmpl.shape) if places is None else places[k].shape
+            if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"checkpoint leaf {k!r}: shape "
                                  f"{tuple(arr.shape)}, expected "
-                                 f"{tuple(tmpl.shape)}")
+                                 f"{tuple(want)}")
             if info["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
+            if places is not None:
+                t = places[k].shard(t, env)
+                if tuple(t.shape) != tuple(tmpl.shape):
+                    raise ValueError(f"checkpoint leaf {k!r}: this rank's "
+                                     f"shard {tuple(t.shape)}, template "
+                                     f"{tuple(tmpl.shape)}")
             loaded[k] = t.to(dev)
         return _unflatten(template, loaded)

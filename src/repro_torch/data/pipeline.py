@@ -7,7 +7,8 @@ families, from a seeded numpy generator: ``batch_at(step)`` is pure, so
 in its order, so every batch is the reference's bit for bit: the tokens
 and labels exactly, the image-patch and audio-frame embeddings
 ``0.02 · N(0, 1)`` in float32, rounded to bfloat16 (to nearest even, as
-JAX rounds).
+JAX rounds). On a live mesh each dp rank takes its rows of the global
+batch (:func:`dp_rows`), the reference's batch sharding.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.graph import resolve_device
+from ..sharding.env import get_env
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +69,20 @@ class SyntheticPipeline:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def dp_rows(batch: dict, env=None) -> dict:
+    """This rank's rows of every tensor of the global ``batch`` on the
+    active (or ``env``'s) mesh: the ``i``-th of dp equal blocks along the
+    first axis, ``i`` this rank's dp index (pod-major). Raises unless the
+    batch divides over dp."""
+    env = get_env() if env is None else env
+    n, i = env.dp_size(), env.dp_index()
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % n:
+            raise ValueError(f"dp_rows: a batch of {b} ({k}) does not "
+                             f"split over dp = {n}")
+        out[k] = v[i * (b // n):(i + 1) * (b // n)]
+    return out

@@ -39,3 +39,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
     return Mesh(tuple(shape), tuple(axes))
+
+
+def parse_mesh(s: str) -> Mesh:
+    """``"1x1"``, ``"DxM"`` or ``"PxDxM"`` as a mesh with the reference
+    launcher's axis names (``src/repro/launch/train.py::parse_mesh``):
+    ("data",), ("data", "model") or ("pod", "data", "model")."""
+    dims = tuple(int(x) for x in s.split("x"))
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}.get(len(dims))
+    if axes is None or min(dims) < 1:
+        raise ValueError(f"--mesh {s!r}: expected 1, 2 or 3 sizes "
+                         "joined by 'x', e.g. 2x4")
+    return Mesh(dims, axes)

@@ -11,8 +11,21 @@ runs in bfloat16 with float32 where the reference computes in float32
 combine). Heads and experts are padded to the active mesh's tensor
 parallelism (``sharding.env.get_env().tp_size()``, 1 with no mesh), as the
 reference pads them at init; the ``*_specs`` functions give each
-parameter's logical partition spec, the reference's. Every expert is
-local: the port runs no sharded tensors yet.
+parameter's logical partition spec, the reference's.
+
+On a live mesh (``sharding.env``: one rank a mesh device) each rank holds
+its shard of every parameter, the fsdp dimension already gathered by the
+caller (``models/lm.py``), and each block runs as a tensor-parallel region
+over the tp group, Megatron-style: the input enters through
+``collectives.copy_to_tp`` and the partial output leaves through
+``collectives.reduce_from_tp``. Attention runs this rank's q heads
+against the kv heads they read (its kv cache holds only those), MLA its
+heads over a latent every rank computes, the MLP its d_ff columns, the MoE
+its experts (the reference's ``shard_map`` worker: capacity from the
+dp-local tokens, positions from the sort over all experts, a float32
+all-reduce of the combine). Leaves a region uses whole on every tp rank
+(kv projections, q/k norms, MLA's down-projections, the router) get a
+partial gradient on each, which the train step sums over tp.
 """
 from __future__ import annotations
 
@@ -22,7 +35,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..sharding.env import get_env
+from ..core import collectives as C
+from ..sharding.env import get_env, place
 from .flash_vjp import flash_fa2
 from .perf import get_perf
 
@@ -42,6 +56,32 @@ def _init(generator: torch.Generator, shape, scale: float | None = None,
 
 def pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def tp_region():
+    """(group, index, size) of the live env's tp axis, or None off a live
+    mesh: whether a block runs as a tensor-parallel region."""
+    env = get_env()
+    if not env.is_live or env.tp is None:
+        return None
+    return env.group(env.tp), env.tp_index(), env.tp_size()
+
+
+def local_kv_heads(h_loc: int, kv: int, tp: int, index: int) -> list[int]:
+    """The kv heads this tp rank's ``h_loc`` q heads read, in the order its
+    grouped attention takes them: q head j of the ``h_loc · tp`` reads kv
+    head ``j // (h_loc · tp / kv)``. When every listed kv head serves an
+    equal, contiguous run of the local q heads the list has one entry a
+    kv head (grouped attention over the local kv heads); otherwise one
+    entry a q head (each q head its own kv head)."""
+    g = h_loc * tp // kv
+    want = [(index * h_loc + j) // g for j in range(h_loc)]
+    uniq = list(dict.fromkeys(want))
+    run = h_loc // len(uniq)
+    if h_loc % len(uniq) == 0 and all(want[j] == uniq[j // run]
+                                      for j in range(h_loc)):
+        return uniq
+    return want
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -129,20 +169,22 @@ def attention_specs(cfg) -> dict[str, tuple]:
     return out
 
 
-def _stacked(generator, shapes: dict, repeats: int, device, scales: dict
-             ) -> dict[str, torch.Tensor]:
+def _stacked(generator, shapes: dict, repeats: int, device, scales: dict,
+             specs: dict) -> dict[str, torch.Tensor]:
     """Parameters stacked [R, ...] by name: normal · ``scales[name]``
     (0.02 when absent) for matrices, zeros for biases (``b*``), ones for
-    norms (``*norm``)."""
+    norms (``*norm``); each drawn whole and, on a live mesh, cut to this
+    rank's shard by its spec (``specs[name]``) before the next is drawn."""
     out = {}
     for name, shape in shapes.items():
         shape = (repeats,) + shape
         if name.endswith("norm"):
-            out[name] = torch.ones(shape, dtype=PARAM_DTYPE, device=device)
+            t = torch.ones(shape, dtype=PARAM_DTYPE, device=device)
         elif name in ("bq", "bk", "bv"):
-            out[name] = torch.zeros(shape, dtype=PARAM_DTYPE, device=device)
+            t = torch.zeros(shape, dtype=PARAM_DTYPE, device=device)
         else:
-            out[name] = _init(generator, shape, scales.get(name), device)
+            t = _init(generator, shape, scales.get(name), device)
+        out[name] = place(t, (None,) + specs[name])
     return out
 
 
@@ -156,7 +198,7 @@ def init_attention(cfg, generator: torch.Generator, repeats: int,
     the reference's distributions: normal·0.02, ``wo`` ·0.02/√(2·n_layers),
     zero biases, unit norms."""
     return _stacked(generator, attention_shapes(cfg), repeats, device,
-                    {"wo": _out_scale(cfg)})
+                    {"wo": _out_scale(cfg)}, attention_specs(cfg))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -255,17 +297,26 @@ def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     cross:   k and v from ``kv_input`` [B, Sk, D] (the encoder's output)
     instead of x. RoPE only under ``use_rope``, its key positions
     ``arange(Sk)`` when ``kv_input`` is given.
+
+    On a live mesh ``p`` holds this rank's q heads, and k/v (and the
+    caches) only the kv heads they read (``local_kv_heads``); the output
+    is all-reduced over tp.
     """
     b, sq, d = x.shape
+    tp = tp_region()
     xc = x.to(COMPUTE_DTYPE)
     kv_src = xc if kv_input is None else kv_input.to(COMPUTE_DTYPE)
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
+        kv_src = xc if kv_input is None else C.copy_to_tp(kv_src, tp[0])
+    kvp = _kv_params(cfg, p, tp)
     q = torch.einsum("bsd,dhk->bhsk", xc, p["wq"].to(COMPUTE_DTYPE))
-    k = torch.einsum("bsd,dhk->bhsk", kv_src, p["wk"].to(COMPUTE_DTYPE))
-    v = torch.einsum("bsd,dhk->bhsk", kv_src, p["wv"].to(COMPUTE_DTYPE))
+    k = torch.einsum("bsd,dhk->bhsk", kv_src, kvp["wk"].to(COMPUTE_DTYPE))
+    v = torch.einsum("bsd,dhk->bhsk", kv_src, kvp["wv"].to(COMPUTE_DTYPE))
     if cfg.qkv_bias:
         q = q + p["bq"].to(COMPUTE_DTYPE)[None, :, None, :]
-        k = k + p["bk"].to(COMPUTE_DTYPE)[None, :, None, :]
-        v = v + p["bv"].to(COMPUTE_DTYPE)[None, :, None, :]
+        k = k + kvp["bk"].to(COMPUTE_DTYPE)[None, :, None, :]
+        v = v + kvp["bv"].to(COMPUTE_DTYPE)[None, :, None, :]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -290,7 +341,23 @@ def attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
         new_cache = (k.transpose(1, 2), v.transpose(1, 2))
 
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(COMPUTE_DTYPE))
+    if tp is not None:
+        y = C.reduce_from_tp(y, tp[0])
     return y.to(x.dtype), new_cache
+
+
+def _kv_params(cfg, p: dict, tp) -> dict:
+    """``wk``, ``wv`` (and ``bk``, ``bv``) of the kv heads this rank's q
+    heads read: all of them off a live mesh."""
+    names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    if tp is None:
+        return {n: p[n] for n in names}
+    kv = p["wk"].shape[-2]
+    idx = local_kv_heads(p["wq"].shape[-2], kv, tp[2], tp[1])
+    if idx == list(range(kv)):
+        return {n: p[n] for n in names}
+    sel = torch.tensor(idx, device=p["wk"].device)
+    return {n: p[n].index_select(p[n].ndim - 2, sel) for n in names}
 
 
 def attention_fixed_kv(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
@@ -298,15 +365,22 @@ def attention_fixed_kv(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     """Cross-attention against precomputed k/v (encdec decode): x
     [B, 1, D], k_cache / v_cache [B, S_enc, KV, dh]; the query projection
     (and its bias), decode attention over all S_enc positions, then
-    ``wo``. No RoPE and no cache write."""
-    q = torch.einsum("bsd,dhk->bhsk", x.to(COMPUTE_DTYPE),
-                     p["wq"].to(COMPUTE_DTYPE))
+    ``wo``. No RoPE and no cache write. On a live mesh: this rank's q
+    heads against the caches of the kv heads they read (as
+    ``lm.cross_kvs_from_memory`` computes them), all-reduced over tp."""
+    tp = tp_region()
+    xc = x.to(COMPUTE_DTYPE)
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
+    q = torch.einsum("bsd,dhk->bhsk", xc, p["wq"].to(COMPUTE_DTYPE))
     if cfg.qkv_bias:
         q = q + p["bq"].to(COMPUTE_DTYPE)[None, :, None, :]
     out = decode_attention(q[:, :, 0, :], k_cache, v_cache,
                            k_cache.shape[1])
     y = torch.einsum("bhsk,hkd->bsd", out[:, :, None, :],
                      p["wo"].to(COMPUTE_DTYPE))
+    if tp is not None:
+        y = C.reduce_from_tp(y, tp[0])
     return y.to(x.dtype)
 
 
@@ -351,7 +425,7 @@ def init_mla(cfg, generator: torch.Generator, repeats: int, device=None
     reference's distributions: normal·0.02, ``wo`` ·0.02/√(2·n_layers),
     unit norms."""
     return _stacked(generator, mla_shapes(cfg), repeats, device,
-                    {"wo": _out_scale(cfg)})
+                    {"wo": _out_scale(cfg)}, mla_specs(cfg))
 
 
 def mla_attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
@@ -370,7 +444,10 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     """
     m = cfg.mla
     b, sq, _ = x.shape
+    tp = tp_region()
     xc = x.to(COMPUTE_DTYPE)
+    if tp is not None:    # this rank's heads over a latent every rank has
+        xc = C.copy_to_tp(xc, tp[0])
     h = p["w_uq"].shape[1]
     dn, dr = m.nope_head_dim, m.rope_head_dim
 
@@ -420,6 +497,8 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
 
     y = torch.einsum("bhsv,hvd->bsd", out.to(COMPUTE_DTYPE),
                      p["wo"].to(COMPUTE_DTYPE))
+    if tp is not None:
+        y = C.reduce_from_tp(y, tp[0])
     return y.to(x.dtype), new_cache
 
 
@@ -443,18 +522,26 @@ def init_mlp(cfg, generator: torch.Generator, repeats: int, device=None,
     """SwiGLU weights stacked [R, ...]: normal·0.02, ``w_down``
     ·0.02/√(2·n_layers)."""
     return _stacked(generator, mlp_shapes(cfg, d_ff), repeats, device,
-                    {"w_down": _out_scale(cfg)})
+                    {"w_down": _out_scale(cfg)}, mlp_specs())
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; on a live mesh over this rank's d_ff columns, its output
+    all-reduced over tp."""
+    tp = tp_region()
     xc = x.to(COMPUTE_DTYPE)
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
     g = silu(xc @ p["w_gate"].to(COMPUTE_DTYPE))
     u = xc @ p["w_up"].to(COMPUTE_DTYPE)
-    return ((g * u) @ p["w_down"].to(COMPUTE_DTYPE)).to(x.dtype)
+    y = (g * u) @ p["w_down"].to(COMPUTE_DTYPE)
+    if tp is not None:
+        y = C.reduce_from_tp(y, tp[0])
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Mixture of experts (one device: every expert local)
+# Mixture of experts (expert-parallel over tp on a live mesh)
 # ---------------------------------------------------------------------------
 
 def moe_shapes(cfg) -> dict[str, Any]:
@@ -492,7 +579,8 @@ def init_moe(cfg, generator: torch.Generator, repeats: int, device=None
     shared = shapes.pop("shared", None)
     out: dict[str, Any] = _stacked(generator, shapes, repeats, device,
                                    {"router": 0.006,
-                                    "w_down": _out_scale(cfg)})
+                                    "w_down": _out_scale(cfg)},
+                                   moe_specs(cfg))
     if shared is not None:
         out["shared"] = init_mlp(cfg, generator, repeats, device,
                                  d_ff=shared["w_down"][0])
@@ -504,11 +592,15 @@ class Routing(NamedTuple):
     chose [T, k] (int64, by falling probability, the lower index first
     among equal ones), their normalised gates [T, k] float32, and ``keep``
     [T, k] (False where the token's slot at that expert overflowed the
-    capacity: the reference's ``keep == False``, a dropped contribution)."""
+    capacity: the reference's ``keep == False``, a dropped contribution),
+    and the router's logits [T, E_pad] float32 (-inf past the real
+    experts), whose gap between the k-th and (k+1)-th largest says how
+    near a tie the token's choice was."""
     expert_idx: torch.Tensor
     gates: torch.Tensor
     keep: torch.Tensor
     capacity: int
+    logits: torch.Tensor
 
 
 _ROUTING_SINKS: list[list[Routing]] = []
@@ -528,6 +620,26 @@ def record_routing():
                                 if s is sink)]
 
 
+_REPLAYS: list[list[torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def replay_routing(experts):
+    """Inside the block the n-th ``moe`` call sends its tokens to the
+    experts ``experts[n]`` [T, k] (a recorded ``Routing.expert_idx``, for
+    the tokens its worker routes: a dp-split call's own rows) in place of
+    its own top-k; gates, capacity slots and the combine follow from them
+    as usual. Two runs that round otherwise then choose alike where a
+    top-k holds a near-tie, so their outputs differ by rounding alone. A
+    call past the end of ``experts`` raises."""
+    queue = list(experts)
+    _REPLAYS.append(queue)
+    try:
+        yield
+    finally:
+        del _REPLAYS[next(i for i, q in enumerate(_REPLAYS) if q is queue)]
+
+
 def top_k_lower_first(values: torch.Tensor, k: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest along the last axis, the lower
@@ -539,22 +651,35 @@ def top_k_lower_first(values: torch.Tensor, k: int
 
 def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
                 w_up: torch.Tensor, w_down: torch.Tensor, *, n_real: int,
-                top_k: int, capacity: int, norm_topk: bool):
-    """Tokens x [T, D] through every expert: route, place each kept
-    (token, expert) pair at its rank among the expert's tokens in flat
-    token order, run the experts on their [capacity, D] buffers, and
-    combine. Returns (y [T, D] float32, aux scalar)."""
+                top_k: int, capacity: int, norm_topk: bool, e_lo: int = 0,
+                tp=None, experts: torch.Tensor | None = None):
+    """Tokens x [T, D] through the experts ``[e_lo, e_lo + E_loc)``
+    (``w_*``'s first axis; every expert off a live mesh): route over all
+    experts, place each kept (token, expert) pair at its rank among the
+    expert's tokens in flat token order, run this rank's experts on their
+    [capacity, D] buffers, and combine their contributions; on a live mesh
+    (``tp``: ``tp_region()``) the float32 combine is all-reduced over tp,
+    the reference's ``psum``. ``experts`` [T, k], where given, replaces
+    the router's top-k choice (``replay_routing``). Returns (y [T, D]
+    float32, aux scalar)."""
     t, d = x.shape
     e_pad = router.shape[1]
+    e_loc = w_gate.shape[0]
     dev = x.device
     xc = x.to(COMPUTE_DTYPE)
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
 
     logits = (xc @ router.to(COMPUTE_DTYPE)).float()
     logits = torch.where(torch.arange(e_pad, device=dev)[None, :] < n_real,
                          logits, float("-inf"))
     ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = ex / ex.sum(dim=-1, keepdim=True)
-    gates, eidx = top_k_lower_first(probs, top_k)                # [T, k]
+    if experts is None:
+        gates, eidx = top_k_lower_first(probs, top_k)            # [T, k]
+    else:
+        eidx = experts.to(dev)
+        gates = torch.gather(probs, -1, eidx)
     if norm_topk:
         gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
@@ -566,20 +691,22 @@ def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     starts = torch.searchsorted(se, torch.arange(e_pad, device=dev))
     pos = torch.arange(t * top_k, device=dev) - starts[se]
     keep = pos < capacity
-    b_e = torch.where(keep, se, 0)
-    b_p = torch.where(keep, pos, capacity)                       # overflow
-    buf = torch.zeros((e_pad * (capacity + 1), d), dtype=COMPUTE_DTYPE,
+    local = keep if e_loc == e_pad else (
+        keep & (se >= e_lo) & (se < e_lo + e_loc))
+    b_e = torch.where(local, se - e_lo, 0)
+    b_p = torch.where(local, pos, capacity)                      # overflow
+    buf = torch.zeros((e_loc * (capacity + 1), d), dtype=COMPUTE_DTYPE,
                       device=dev)
     buf.index_add_(0, b_e * (capacity + 1) + b_p,
-                   xc[stok] * keep[:, None].to(COMPUTE_DTYPE))
-    buf = buf.view(e_pad, capacity + 1, d)[:, :capacity]
+                   xc[stok] * local[:, None].to(COMPUTE_DTYPE))
+    buf = buf.view(e_loc, capacity + 1, d)[:, :capacity]
 
     g = silu(torch.bmm(buf, w_gate.to(COMPUTE_DTYPE)))
     u = torch.bmm(buf, w_up.to(COMPUTE_DTYPE))
     o = torch.bmm(g * u, w_down.to(COMPUTE_DTYPE))               # [E,C,D]
 
-    o_pad = torch.cat([o, o.new_zeros((e_pad, 1, d))], dim=1)
-    contrib = o_pad[b_e, b_p] * (gates.reshape(-1)[order] * keep
+    o_pad = torch.cat([o, o.new_zeros((e_loc, 1, d))], dim=1)
+    contrib = o_pad[b_e, b_p] * (gates.reshape(-1)[order] * local
                                  )[:, None].to(o.dtype)
     # back to token order, each token's k terms by ascending expert (the
     # order the reference's scatter-add meets them in), summed in float32
@@ -591,11 +718,13 @@ def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     y = terms[:, 0].float()
     for j in range(1, top_k):
         y = y + terms[:, j].float()
+    if tp is not None:
+        y = C.reduce_from_tp(y, tp[0])
 
     if _ROUTING_SINKS:
         keep_tok = torch.empty_like(keep)
         keep_tok[order] = keep
-        r = Routing(eidx, gates, keep_tok.view(t, top_k), capacity)
+        r = Routing(eidx, gates, keep_tok.view(t, top_k), capacity, logits)
         for sink in _ROUTING_SINKS:
             sink.append(r)
 
@@ -607,6 +736,8 @@ def _moe_worker(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
         -1, eidx[..., None], 1.0)[..., :n_real]
     ce = onehot.sum(dim=1).mean(dim=0)
     aux = n_real * (me * ce).sum()
+    if tp is not None:   # every tp rank computes it whole: count it once
+        aux = C.scale_grad(aux, 1.0 / tp[2])
     return y, aux
 
 
@@ -620,13 +751,38 @@ def moe_capacity(cfg, n_tokens: int) -> int:
 def moe(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D] in x's dtype, aux scalar float32): the
     routed experts, capacity-bounded over the call's B·S tokens, plus the
-    shared expert."""
+    shared expert.
+
+    On a live mesh, the reference's ``shard_map`` branch: this rank's
+    experts (``p``'s shard: ``E_pad / tp`` from ``tp_index · E_pad / tp``)
+    over its dp-local tokens, the capacity from their count. ``x`` holds
+    this rank's batch rows when the env's batch is split over dp; a batch
+    every dp rank holds whole (serving fewer sequences than dp) is split
+    here when its B·S tokens divide over dp (the reference's ``dp_ok``),
+    and the outputs all-gathered back, else every rank takes all tokens.
+    ``aux`` is this dp block's (the train step averages it over dp).
+    Inside ``replay_routing`` the experts come from the replay."""
     mo = cfg.moe
     b, s, d = x.shape
-    y, aux = _moe_worker(x.reshape(b * s, d), p["router"], p["w_gate"],
-                         p["w_up"], p["w_down"], n_real=mo.n_experts,
-                         top_k=mo.top_k, capacity=moe_capacity(cfg, b * s),
-                         norm_topk=True)
+    t = b * s
+    xt = x.reshape(t, d)
+    tp = tp_region()
+    env = get_env()
+    dp = env.dp_size() if tp is not None else 1
+    split = (tp is not None and not env.batch_split and dp > 1
+             and t % dp == 0 and t >= dp)
+    if split:
+        t_loc = t // dp
+        xt = xt[env.dp_index() * t_loc:(env.dp_index() + 1) * t_loc]
+    e_lo = 0 if tp is None else tp[1] * p["w_gate"].shape[0]
+    y, aux = _moe_worker(xt, p["router"], p["w_gate"], p["w_up"],
+                         p["w_down"], n_real=mo.n_experts, top_k=mo.top_k,
+                         capacity=moe_capacity(cfg, xt.shape[0]),
+                         norm_topk=True, e_lo=e_lo, tp=tp,
+                         experts=_REPLAYS[-1].pop(0) if _REPLAYS else None)
+    if split:
+        for a in reversed(env.dp):          # row-major: data, then pod
+            y = C.all_gather(y, 0, env.group(a))
     y = y.reshape(b, s, d).to(x.dtype)
     if mo.n_shared:
         y = y + mlp(p["shared"], x)

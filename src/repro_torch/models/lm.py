@@ -34,6 +34,21 @@ reference's do: heads and experts are padded to its tp, and
 partition spec trees the reference's ``init_params``, ``cache_struct``
 and ``cross_kv_struct`` return beside their shapes. With no mesh active
 every shape is the one-device shape.
+
+On a live mesh (``sharding.env.use_mesh(mesh, mesh.connect())``: one
+rank a mesh device) the same functions run sharded. Every parameter is
+held as this rank's shard (``placements``: ``shard_shape`` of its spec;
+``init_params`` draws each leaf whole from the seeded generator and keeps
+its shard, ``shard_params`` / ``gather_params`` cut and join a tree). A
+leaf split over fsdp is all-gathered just before its layer runs
+(``collectives.gather_shard``, inside the layer's remat region, so the
+recompute gathers again) and its gradient reduce-scattered back. The
+embedding is vocabulary-parallel (a masked lookup of this rank's rows,
+all-reduced over tp), the logits this rank's vocabulary columns
+(``gather_vocab`` joins them), and every block a tensor-parallel region
+(``models/layers.py``, ``models/ssm.py``). Activations hold this rank's
+batch rows; attention caches the kv heads its q heads read, MLA caches
+the whole latent, SSM state its channels.
 """
 from __future__ import annotations
 
@@ -46,8 +61,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..core import collectives as C
 from ..core.graph import resolve_device
-from ..sharding.env import get_env
+from ..sharding.env import Placement, get_env, logical_spec, place, set_env
+from ..train.optimizer import OptState, tree_map
 from . import layers as L
 from . import ssm as S
 from .perf import get_perf, set_perf
@@ -186,12 +203,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     drawn from ``generator`` on ``device`` (None: the card). ``jax.random``
     streams cannot be reproduced, so the values differ from the
     reference's for the same seed; ``params_from_reference`` carries the
-    reference's own values across."""
+    reference's own values across. On a live mesh every leaf is drawn
+    whole, in the same order, and cut to this rank's shard before the
+    next is drawn, so every mesh starts from the same weights."""
     _require_ported(cfg)
     dev = resolve_device(device)
     params: dict[str, Any] = {
-        "embed": L._init(generator, (vocab_pad(cfg), cfg.d_model),
-                         device=dev)}
+        "embed": place(L._init(generator, (vocab_pad(cfg), cfg.d_model),
+                               device=dev), ("tp", "fsdp"))}
     cross = cfg.family == "encdec"
     params["blocks"] = {f"l{i}": _init_layer(cfg, kind, i, generator, dev,
                                              cross=cross)
@@ -204,9 +223,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["final_norm"] = torch.ones(cfg.d_model, dtype=L.PARAM_DTYPE,
                                       device=dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._init(generator,
-                                    (vocab_pad(cfg), cfg.d_model),
-                                    device=dev)
+        params["lm_head"] = place(L._init(generator,
+                                          (vocab_pad(cfg), cfg.d_model),
+                                          device=dev), ("tp", "fsdp"))
     return params
 
 
@@ -235,6 +254,29 @@ def params_from_reference(cfg: ModelConfig, np_params, device=None
     return walk(param_shapes(cfg), np_params, "")
 
 
+def placements(cfg: ModelConfig) -> dict[str, Any]:
+    """Each parameter's ``Placement`` (spec, full shape, halves), in the
+    layout of ``params``, on the active env."""
+    def walk(shapes, specs, key=""):
+        if isinstance(shapes, dict):
+            return {k: walk(shapes[k], specs[k], k) for k in shapes}
+        return Placement(tuple(specs), tuple(shapes),
+                         halves=key in S.param_halves)
+    return walk(param_shapes(cfg), param_specs(cfg))
+
+
+def shard_params(cfg: ModelConfig, params) -> dict[str, Any]:
+    """This rank's shard of every leaf of the full tree ``params`` on the
+    live env (``placements``)."""
+    return tree_map(lambda pl, t: pl.shard(t), placements(cfg), params)
+
+
+def gather_params(cfg: ModelConfig, params) -> dict[str, Any]:
+    """The full tree from every rank's shards (the inverse of
+    ``shard_params``; a collective every rank calls)."""
+    return tree_map(lambda pl, t: pl.gather(t), placements(cfg), params)
+
+
 def params_to_numpy(params) -> dict[str, Any]:
     """The parameters as a pytree of numpy arrays (the reference's
     layout)."""
@@ -255,6 +297,14 @@ def opt_state_from_reference(cfg: ModelConfig, np_opt, device=None):
                                  device=dev),
                     params_from_reference(cfg, m, dev),
                     params_from_reference(cfg, v, dev))
+
+
+def state_placements(cfg: ModelConfig) -> dict[str, Any]:
+    """``{"params", "opt"}`` placements of a training state (a
+    checkpoint's ``shardings=``): the parameters' and both moments',
+    the step replicated."""
+    pl = placements(cfg)
+    return {"params": pl, "opt": OptState(Placement((), ()), pl, pl)}
 
 
 def opt_state_to_numpy(opt) -> tuple:
@@ -336,6 +386,20 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
     backward runs on autograd's device thread)."""
     pattern = ("attn",) if encoder else cfg.layer_pattern
     keep = caches is not None or collect_cache
+    env = get_env()
+    gathers = None
+    if env.is_live:     # each layer's full shapes and specs, repeat axis off
+        cross = cfg.family == "encdec" and not encoder
+        gathers = {f"l{i}": (
+            _unstack(_layer_shapes(cfg, kind, i, cross=cross,
+                                   encoder=encoder)),
+            _unstack(_layer_specs(cfg, kind, i, cross=cross,
+                                  encoder=encoder)))
+            for i, kind in enumerate(pattern)}
+
+    def layer_params(name, r):
+        p = _index(blocks[name], r)
+        return p if gathers is None else gather_fsdp(p, *gathers[name])
 
     def repeat(r, x):
         new, auxes = [], []
@@ -344,7 +408,7 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
             c = None if caches is None else tuple(t[r] for t in caches[name])
             ck = (None if cross_kvs is None
                   else tuple(t[r] for t in cross_kvs[name]))
-            x, nc, a = _apply_layer(cfg, kind, i, _index(blocks[name], r), x,
+            x, nc, a = _apply_layer(cfg, kind, i, layer_params(name, r), x,
                                     positions=positions, cache=c,
                                     cache_len=cache_len, memory=memory,
                                     cross_kv=ck, causal=causal,
@@ -367,13 +431,16 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
 
         def pinned(r, x):
             # the recompute runs in the backward, on the CUDA device's
-            # autograd thread, whose profile is its own: pin the forward's
-            prev = get_perf()
+            # autograd thread, whose profile and mesh env are its own: pin
+            # the forward's
+            prev, prev_env = get_perf(), get_env()
             set_perf(perf)
+            set_env(env)
             try:
                 return repeat(r, x)
             finally:
                 set_perf(prev)
+                set_env(prev_env)
 
         def run(r, x):
             return checkpoint(pinned, r, x, use_reentrant=False, **context)
@@ -429,15 +496,79 @@ def _index(tree, r: int):
     return tree[r]
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+def _unstack(tree):
+    """A stacked shape or spec tree without its leading repeat entry."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v) for k, v in tree.items()}
+    return tuple(tree[1:])
+
+
+def gather_fsdp(tree, shapes, specs):
+    """Each leaf of ``tree`` (this rank's shards) with its fsdp dimension
+    all-gathered to its full length in ``shapes`` (``gather_shard``: the
+    gradient reduce-scatters back); leaves not split over fsdp as they
+    are. ``specs`` are the leaves' logical specs."""
+    env = get_env()
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v, shapes[k], specs[k])
+                for k, v in tree.items()}
+    for dim, axes in enumerate(logical_spec(*specs, env=env)):
+        if env.fsdp in axes:
+            if axes != (env.fsdp,):
+                raise ValueError(f"spec {specs}: fsdp shares a dimension")
+            return C.gather_shard(tree, dim, shapes[dim],
+                                  env.group(env.fsdp))
+    return tree
+
+
+def _tables(cfg: ModelConfig, params: dict) -> tuple:
+    """(embedding table, output head) as a forward uses them: on a live
+    mesh this rank's vocabulary rows with the model dimension gathered
+    over fsdp, gathered once when the two are tied."""
     head = params.get("lm_head", params["embed"])
-    return x.to(L.COMPUTE_DTYPE) @ head.to(L.COMPUTE_DTYPE).T
+    if not get_env().is_live:
+        return params["embed"], head
+    shape = (vocab_pad(cfg), cfg.d_model)
+    emb = gather_fsdp(params["embed"], shape, ("tp", "fsdp"))
+    if "lm_head" not in params:
+        return emb, emb
+    return emb, gather_fsdp(params["lm_head"], shape, ("tp", "fsdp"))
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    # index, then cast: the same bits as casting the table first
-    return params["embed"][tokens].to(L.COMPUTE_DTYPE)
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            head: torch.Tensor) -> torch.Tensor:
+    """The output logits [.., V_pad] through ``head`` (``_tables``); on a
+    live mesh this rank's vocabulary columns."""
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    xc = x.to(L.COMPUTE_DTYPE)
+    tp = L.tp_region()
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
+    return xc @ head.to(L.COMPUTE_DTYPE).T
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings from ``table`` (``_tables``) in the compute dtype;
+    on a live mesh a masked lookup of this rank's vocabulary rows,
+    all-reduced over tp."""
+    tp = L.tp_region()
+    if tp is None:
+        # index, then cast: the same bits as casting the table first
+        return table[tokens].to(L.COMPUTE_DTYPE)
+    v_loc = table.shape[0]
+    local = tokens.long() - tp[1] * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = table[local.clamp(0, v_loc - 1)] * hit[..., None]
+    return C.reduce_from_tp(rows.to(L.COMPUTE_DTYPE), tp[0])
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """The full vocabulary's logits from every tp rank's columns (a
+    collective on a live mesh; ``logits`` itself off one)."""
+    tp = L.tp_region()
+    if tp is None:
+        return logits
+    return C.all_gather(logits.contiguous(), logits.ndim - 1, tp[0])
 
 
 def _encode(cfg: ModelConfig, params: dict, enc_frames: torch.Tensor
@@ -469,7 +600,8 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     block repeat while autograd records, never the encoder (see
     ``_run_blocks``); without autograd it changes nothing."""
     _require_ported(cfg)
-    x = _embed(params, tokens)
+    table, head = _tables(cfg, params)
+    x = _embed(table, tokens)
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     if enc_frames is not None:
@@ -480,7 +612,7 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x, caches, aux = _run_blocks(cfg, params["blocks"], x,
                                  positions=positions, memory=memory,
                                  collect_cache=collect_cache, remat=remat)
-    return _logits(cfg, params, x), aux, caches
+    return _logits(cfg, params, x, head), aux, caches
 
 
 def cross_kvs_from_memory(cfg: ModelConfig, params: dict,
@@ -489,9 +621,16 @@ def cross_kvs_from_memory(cfg: ModelConfig, params: dict,
     output [B, S_enc, D], bf16 [R, B, S_enc, KV, dh] each (with the
     biases where ``qkv_bias``), for ``decode_step(cross_kvs=)``."""
     mc = memory.to(L.COMPUTE_DTYPE)
+    tp = L.tp_region()
     out = {}
     for name, bp in params["blocks"].items():
         p = bp["cross"]
+        if get_env().is_live:
+            p = gather_fsdp(p, _layer_shapes(cfg, "attn", 0,
+                                             cross=True)["cross"],
+                            _layer_specs(cfg, "attn", 0, cross=True)["cross"])
+        if tp is not None:   # the kv heads this rank's q heads read
+            p = L._kv_params(cfg, p, tp)
         k = torch.einsum("bsd,rdhk->rbshk", mc, p["wk"].to(L.COMPUTE_DTYPE))
         v = torch.einsum("bsd,rdhk->rbshk", mc, p["wv"].to(L.COMPUTE_DTYPE))
         if cfg.qkv_bias:
@@ -510,14 +649,15 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
     Returns (logits [B, 1, V_pad], new caches); ``caches`` is left as it
     was."""
     _require_ported(cfg)
-    x = _embed(params, token)
+    table, head = _tables(cfg, params)
+    x = _embed(table, token)
     positions = torch.full((1,), int(cache_len), dtype=torch.int32,
                            device=x.device)
     x, new_caches, _ = _run_blocks(cfg, params["blocks"], x,
                                    positions=positions, caches=caches,
                                    cache_len=int(cache_len),
                                    cross_kvs=cross_kvs)
-    return _logits(cfg, params, x), new_caches
+    return _logits(cfg, params, x, head), new_caches
 
 
 # ---------------------------------------------------------------------------

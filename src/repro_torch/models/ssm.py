@@ -12,6 +12,14 @@ their plain versions), where the reference differentiates its chunked
 associative scan. Matmuls run in bfloat16 on float32 parameters, each
 weight cast at its use; the scan runs in float32 (``perf.ssm_bf16``
 raises: the kernels have no bfloat16 form).
+
+On a live mesh (``sharding.env``) a rank holds d_inner / tp channels of
+every mixer parameter (``in_proj`` its channels of x and of the gate, side
+by side: ``param_halves``) and runs the block as a tensor-parallel region:
+``x_proj`` contracts over d_inner, so its output (dt's rank, B and C) is
+all-reduced over tp, and ``out_proj`` is row-split, so the block's output
+is too; the conv, the scan and its backward kernel run on the rank's
+channels unchanged, its state [B, d_inner / tp, N].
 """
 from __future__ import annotations
 
@@ -21,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SsmConfig
+from ..core import collectives as C
 from ..kernels import ops
-from .layers import COMPUTE_DTYPE, PARAM_DTYPE, _init, silu
+from ..sharding.env import place
+from .layers import COMPUTE_DTYPE, PARAM_DTYPE, _init, silu, tp_region
 from .perf import get_perf
 
 
@@ -56,18 +66,27 @@ def param_specs(cfg: ModelConfig) -> dict[str, tuple]:
             "out_proj": ("tp", "fsdp")}
 
 
+#: Parameters whose last dimension is two halves split over tp apart.
+param_halves = ("in_proj",)
+
+
 def init_ssm(cfg: ModelConfig, generator: torch.Generator, repeats: int,
              device=None) -> dict[str, torch.Tensor]:
     """``repeats`` mixers' parameters, each stacked [R, ...], drawn as the
     reference draws them: normal·0.02 projections, ``conv_w`` ·0.2,
     ``dt_proj`` ·dt_rank^-0.5, ``out_proj`` ·0.02/√(2·n_layers), S4D-real
     ``a_log = log(1..N)``, and ``dt_bias`` the inverse softplus of a
-    log-uniform step in [0.001, 0.1]."""
+    log-uniform step in [0.001, 0.1]. On a live mesh each is cut to this
+    rank's shard as soon as it is drawn."""
     s, d_in, dt_rank = ssm_dims(cfg)
     shapes = {k: (repeats,) + v for k, v in param_shapes(cfg).items()}
+    specs = param_specs(cfg)
 
     def normal(name, scale=None):
-        return _init(generator, shapes[name], scale, device)
+        return _placed(name, _init(generator, shapes[name], scale, device))
+
+    def _placed(name, t):
+        return place(t, (None,) + specs[name], halves=name in param_halves)
 
     u = torch.rand(shapes["dt_bias"], generator=generator, dtype=PARAM_DTYPE,
                    device=device)
@@ -76,14 +95,16 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator, repeats: int,
     return {
         "in_proj": normal("in_proj"),
         "conv_w": normal("conv_w", 0.2),
-        "conv_b": torch.zeros(shapes["conv_b"], dtype=PARAM_DTYPE,
-                              device=device),
+        "conv_b": _placed("conv_b", torch.zeros(
+            shapes["conv_b"], dtype=PARAM_DTYPE, device=device)),
         "x_proj": normal("x_proj"),
         "dt_proj": normal("dt_proj", dt_rank ** -0.5),
-        "dt_bias": torch.log(torch.expm1(step.clamp(min=1e-4))),
-        "a_log": torch.log(a_init).expand(shapes["a_log"]).contiguous(),
-        "d_skip": torch.ones(shapes["d_skip"], dtype=PARAM_DTYPE,
-                             device=device),
+        "dt_bias": _placed("dt_bias",
+                           torch.log(torch.expm1(step.clamp(min=1e-4)))),
+        "a_log": _placed("a_log", torch.log(a_init).expand(
+            shapes["a_log"]).contiguous()),
+        "d_skip": _placed("d_skip", torch.ones(
+            shapes["d_skip"], dtype=PARAM_DTYPE, device=device)),
         "out_proj": normal("out_proj", 0.02 / math.sqrt(2 * cfg.n_layers)),
     }
 
@@ -127,9 +148,14 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if get_perf().ssm_bf16:
         raise ValueError("perf ssm_bf16: the selective scan kernels run in "
                          "float32 only")
-    s_cfg, d_in, dt_rank = ssm_dims(cfg)
+    s_cfg, _, dt_rank = ssm_dims(cfg)
     n = s_cfg.d_state
-    xz = x.to(COMPUTE_DTYPE) @ p["in_proj"].to(COMPUTE_DTYPE)   # [B,S,2Di]
+    tp = tp_region()
+    xc = x.to(COMPUTE_DTYPE)
+    if tp is not None:
+        xc = C.copy_to_tp(xc, tp[0])
+    d_in = p["in_proj"].shape[-1] // 2          # this rank's channels
+    xz = xc @ p["in_proj"].to(COMPUTE_DTYPE)                    # [B,S,2Di]
     xi, z = xz[..., :d_in], xz[..., d_in:]
 
     conv_state = state[0] if state is not None else None
@@ -138,6 +164,8 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     xi = silu(xi)
 
     proj = xi @ p["x_proj"].to(COMPUTE_DTYPE)                   # [B,S,R+2N]
+    if tp is not None:   # a sum over every rank's channels, used by each
+        proj = C.copy_to_tp(C.reduce_from_tp(proj, tp[0]), tp[0])
     dt_r = proj[..., :dt_rank]
     b_t = proj[..., dt_rank:dt_rank + n].float().contiguous()
     c_t = proj[..., dt_rank + n:].float().contiguous()
@@ -153,4 +181,6 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     y = y.to(COMPUTE_DTYPE) * silu(z)
     out = y @ p["out_proj"].to(COMPUTE_DTYPE)
+    if tp is not None:
+        out = C.reduce_from_tp(out, tp[0])
     return out.to(x.dtype), (new_conv, new_h)

@@ -1,13 +1,26 @@
 """Serving: prefill plus single-token decode steps, and a small batched
 greedy engine (the counterpart of ``repro/serve/serve_step.py``), with the
-encdec family's audio frames and the vlm family's image embeddings."""
+encdec family's audio frames and the vlm family's image embeddings.
+
+On a live mesh (``sharding.env``) the weights are this rank's shards, the
+logits this rank's vocabulary columns (``greedy_token`` takes the argmax
+over all of them) and the caches its own: ``Engine.generate`` takes the
+global prompts, keeps this rank's dp rows when the batch divides over dp
+(else every dp rank serves the whole batch, ``MeshEnv.batch_split``
+False) and returns every sequence's tokens on every rank."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import collectives as C
+from ..data.pipeline import dp_rows
+from ..models import layers as L
 from ..models import lm
+from ..sharding.env import get_env, use_mesh
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, **modality):
@@ -29,10 +42,21 @@ def decode(cfg: ModelConfig, params, token: torch.Tensor, caches,
 
 def greedy_token(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     """Argmax over the real vocabulary (padding columns masked to -inf),
-    int32; ties go to the first index."""
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    int32; ties go to the first index. On a live mesh ``logits`` are this
+    rank's vocabulary columns: the largest value is taken over tp, and the
+    lowest id holding it, as ``jnp.argmax`` over the whole row."""
+    tp = L.tp_region()
+    v_lo = 0 if tp is None else tp[1] * logits.shape[-1]
+    col = v_lo + torch.arange(logits.shape[-1], device=logits.device)
     masked = torch.where(col < vocab, logits, float("-inf"))
-    return torch.argmax(masked, dim=-1).to(torch.int32)
+    idx = torch.argmax(masked, dim=-1)
+    if tp is None:
+        return idx.to(torch.int32)
+    val = torch.take_along_dim(masked, idx[..., None], dim=-1)[..., 0]
+    best = C.all_reduce_(val.float().clone(), "max", tp[0])
+    first = torch.where(val.float() == best, idx + v_lo,
+                        torch.iinfo(torch.int64).max).contiguous()
+    return C.all_reduce_(first, "min", tp[0]).to(torch.int32)
 
 
 def grow_caches(cfg: ModelConfig, caches, batch: int, s_max: int):
@@ -77,7 +101,31 @@ class Engine:
         reference's ``generate``, which decodes at S0 and leaves the
         caches N_img + S0 long: its first step then overwrites the cache
         entry of an image token and misses a prefill of one more token.
+
+        On a live mesh every rank passes the same global inputs and gets
+        every sequence's tokens back.
         """
+        env = get_env()
+        if not env.is_live:
+            return self._generate(tokens, n_new, img_embeds, enc_frames)
+        b, dp = tokens.shape[0], env.dp_size()
+        split = b % dp == 0 and b >= dp
+        rows = {"tokens": tokens}
+        rows.update((k, v) for k, v in (("img_embeds", img_embeds),
+                                        ("enc_frames", enc_frames))
+                    if v is not None)
+        if split:
+            rows = dp_rows(rows, env)
+        with use_mesh(dataclasses.replace(env, batch_split=split)):
+            out = self._generate(rows["tokens"], n_new,
+                                 rows.get("img_embeds"),
+                                 rows.get("enc_frames"))
+        if split:
+            for a in reversed(env.dp):        # row-major: data, then pod
+                out = C.all_gather(out, 0, env.group(a))
+        return out
+
+    def _generate(self, tokens, n_new, img_embeds, enc_frames):
         cfg = self.cfg
         b, s0 = tokens.shape
         if s0 + n_new > self.s_max:

@@ -16,6 +16,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..core import collectives as C
+from ..sharding.env import get_env
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -86,24 +89,39 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√Σ g², float32, the leaves summed in sorted-key order."""
+def global_norm(tree, split=None) -> torch.Tensor:
+    """√Σ g², float32, the leaves summed in sorted-key order. On a live
+    mesh ``split`` gives the mesh axes each leaf's shards are split over
+    (``train_step.split_axes``; none for every leaf by default): the
+    squares of the leaves split alike are summed over those axes' groups,
+    and a leaf replicated over an axis is counted once."""
+    leaves = tree_leaves(tree)
+    axes_of = tree_leaves(split) if split is not None else [()] * len(leaves)
+    buckets: dict = {}
+    for leaf, axes in zip(leaves, axes_of):
+        buckets[axes] = buckets.get(axes, 0) + torch.sum(
+            torch.square(leaf.float()))
     total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+    for axes in sorted(buckets):
+        part = buckets[axes].clone()
+        for a in axes:
+            C.all_reduce_(part, "sum", get_env().group(a))
+        total = total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: OptState):
-    """One AdamW step, gradients clipped to ``grad_clip`` global norm.
+def apply_updates(cfg: AdamWConfig, params, grads, state: OptState,
+                  split=None):
+    """One AdamW step, gradients clipped to ``grad_clip`` global norm
+    (``split``: on a live mesh, as ``global_norm`` takes it).
     Returns (new params in their own dtypes, new OptState, {"grad_norm",
     "lr"}); the inputs are left as they were. Each leaf is updated in
     slices of at most UPDATE_SLICE elements along its first axis, written
     into its new tensors, so the update's temporaries stay small beside
     the state (a stacked leaf of a large model holds gigabytes); the
     arithmetic is elementwise, so slicing changes no bit."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1

@@ -10,8 +10,10 @@
   from the last good state (the inputs of a step are never modified).
 
 A step's time is taken on the host clock after ``torch.cuda.synchronize``
-on the card (the counterpart of ``block_until_ready``). The reference's
-elastic re-shard on restore waits for the port's launch tooling.
+on the card (the counterpart of ``block_until_ready``). Under a live mesh
+(``sharding.env``) the state is this rank's shards, and checkpoints are
+saved whole and restored re-sharded (``lm.placements``): the reference's
+elastic re-shard.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..configs.base import ModelConfig
 from ..core.graph import resolve_device
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..models import lm
+from ..sharding.env import get_env
 from .optimizer import AdamWConfig, init_opt_state
 from .train_step import train_step
 
@@ -64,15 +67,23 @@ class Trainer:
             params = lm.init_params(cfg, gen, self.device)
         self.params = params
         self.opt_state = init_opt_state(params)
+        self.shardings = (lm.state_placements(cfg) if get_env().is_live
+                          else None)
         self.step = 0
         latest = self.ckpt.latest_step()
         if latest is not None:
             state = self.ckpt.restore(
                 {"params": self.params, "opt": self.opt_state},
-                device=self.device)
+                device=self.device, shardings=self.shardings)
             self.params, self.opt_state = state["params"], state["opt"]
             self.step = latest
             log.info("resumed from step %d", latest)
+
+    def _save(self, blocking: bool = False) -> None:
+        kw = {} if self.shardings is None else {"shardings": self.shardings}
+        self.ckpt.save(self.step, {"params": self.params,
+                                   "opt": self.opt_state},
+                       blocking=blocking, **kw)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -117,13 +128,10 @@ class Trainer:
             if self.step % self.tcfg.log_every == 0:
                 log.info("step %d loss=%.4f", self.step, losses[-1])
             if self.step % self.tcfg.ckpt_every == 0:
-                self.ckpt.save(self.step,
-                               {"params": self.params, "opt": self.opt_state})
+                self._save()
         self.ckpt.wait()
         if self.ckpt.latest_step() != self.step:   # else written already
-            self.ckpt.save(self.step,
-                           {"params": self.params, "opt": self.opt_state},
-                           blocking=True)
+            self._save(blocking=True)
         return {"final_metrics": {k: float(v) for k, v in metrics.items()},
                 "stragglers": stragglers,
                 "median_step_s": statistics.median(times) if times else 0.0,

@@ -5,6 +5,18 @@
 Phases, in the order they run (any failure raises, so the process exits
 non-zero with no "ok" line):
 
+0. analysis — on the host, before anything runs on the card: the port's
+              static analyzer (``repro_torch.analysis``) over
+              ``src/repro_torch`` with its suppressions file; one line of
+              rules, files, findings and suppressed; any unsuppressed
+              finding or unused suppression fails. Once the device phase
+              has built the kernels (``analysis.sync``): TS002's
+              cross-check on the card, the ``_SelectiveScan`` root
+              (float32, ANALYSIS_SCAN_SHAPE, both hand-written kernels) and
+              the ``_FlashFA2`` root (bfloat16, ANALYSIS_FA2_SHAPE) each
+              forward and backward once under
+              ``torch.cuda.set_sync_debug_mode("error")``: a synchronising
+              call raises; the scan launches each kernel once.
 1. device   — require CUDA; print the card's name and power limit
               (nvidia-smi); build the nine CUDA kernels from
               ``src/repro_torch/csrc`` for sm_90a, one nvcc per source, in
@@ -541,6 +553,12 @@ SDPA_REL = 2.0 ** -6
 #    (below).
 F32_DECODE_REL = 1e-4
 DBLP_SCALE, K, SEED = 1.0, 16, 0
+#: The analysis phase's sync cross-check: the selective-scan root at
+#: float32 [B, S, Di, N] (with h0) and the FA-2 root at bfloat16 [B, H, S,
+#: dh] (k and v with as many heads, causal, in ANALYSIS_FA2_BLOCK-key
+#: blocks), forward and backward once each.
+ANALYSIS_SCAN_SHAPE = (2, 256, 1024, 16)
+ANALYSIS_FA2_SHAPE, ANALYSIS_FA2_BLOCK = (2, 8, 512, 64), 256
 #: The lm phase: falcon-mamba-7b at full width and depth, B prompts of S
 #: tokens, LM_NEW new tokens each.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "falcon-mamba-7b", 4, 512, 16
@@ -873,6 +891,114 @@ def max_rel(a: torch.Tensor, b) -> float:
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+
+def phase_analysis() -> dict:
+    """Phase 0, on the host: the port's static analyzer
+    (``repro_torch.analysis``) over ``src/repro_torch`` with the port's
+    suppressions, found by the walk up from the root, as ``python -m
+    repro_torch.analysis src/repro_torch`` runs it. Any unsuppressed
+    finding or unused suppression fails the phase."""
+    require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py "
+            "drives the port on the GPU")
+    from repro_torch import analysis as A
+    from repro_torch.analysis import suppressions as S
+    from repro_torch.analysis.runner import iter_sources, render_text
+
+    root = str(ROOT / "src" / "repro_torch")
+    t0 = time.perf_counter()
+    supp_path = S.discover(root)
+    require(supp_path is not None, f"no {S.FILENAME} above {root}")
+    with open(supp_path, encoding="utf-8") as f:
+        supps = S.parse(f.read(), A.all_rules(), supp_path)
+    files = iter_sources([root])
+    findings = A.scan(files)
+    kept, silenced = S.apply(findings, supps)
+    out = {"rules": len(A.all_rules()), "files": len(files),
+           "findings": len(findings), "suppressed": len(silenced),
+           "unsuppressed": len(kept),
+           "suppressions": os.path.relpath(supp_path, ROOT),
+           "unused_suppressions": [f"{s.rule} {s.path_glob} {s.symbol_glob}"
+                                   for s in supps if not s.used],
+           "host_s": time.perf_counter() - t0}
+    log({"phase": "analysis", **out})
+    require(not kept, "unsuppressed analyzer findings:\n" + render_text(kept))
+    require(not out["unused_suppressions"],
+            f"unused suppressions: {out['unused_suppressions']}")
+    return out
+
+
+def _sync_free(name: str, fn) -> dict:
+    """``fn()`` (a forward and backward through one trace root) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronising call
+    raises out of here, so a return means none was made. The kernels'
+    launches during the call and its host seconds are returned."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    before, prev = dict(ops.LAUNCHES), torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    require(finite, f"{name}: a gradient is not finite")
+    return {"root": name, "syncs": 0, "host_s": host_s,
+            "launches": {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                         if v != before[k]}}
+
+
+def phase_analysis_sync() -> list:
+    """The analysis phase on the card, once the kernels are built: TS002's
+    cross-check where it matters. The ``_SelectiveScan`` root
+    (``ops.selective_scan`` at ANALYSIS_SCAN_SHAPE, float32, with h0:
+    the forward kernel with chunk states, then ``selective_scan_bwd``) and
+    the ``_FlashFA2`` root (``flash_fa2`` at ANALYSIS_FA2_SHAPE, bfloat16,
+    causal) each run forward and backward once under
+    ``set_sync_debug_mode("error")``: neither may synchronise, and the
+    scan must launch each of its two kernels once."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.flash_vjp import flash_fa2
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    b, s, d, n = ANALYSIS_SCAN_SHAPE
+    scan_in = [randn(b, s, d), torch.nn.functional.softplus(randn(b, s, d)),
+               randn(b, s, n, scale=0.5), randn(b, s, n, scale=0.5),
+               torch.exp(randn(d, n, scale=0.3)), randn(d), randn(b, d, n)]
+    dy, dh = randn(b, s, d), randn(b, d, n)
+    scan_in = [t.requires_grad_(True) for t in scan_in]
+
+    def scan():
+        y, h_last = ops.selective_scan(*scan_in)
+        return torch.autograd.grad((y * dy).sum() + (h_last * dh).sum(),
+                                   scan_in)
+
+    fb, fh, fs, fd = ANALYSIS_FA2_SHAPE
+    qkv = [randn(fb, fh, fs, fd, dtype=torch.bfloat16).requires_grad_(True)
+           for _ in range(3)]
+    dout = randn(fb, fh, fs, fd, dtype=torch.bfloat16)
+
+    def fa2():
+        out = flash_fa2(*qkv, True, ANALYSIS_FA2_BLOCK)
+        return torch.autograd.grad(out, qkv, dout)
+
+    rows = [dict(_sync_free("_SelectiveScan", scan),
+                 shape=list(ANALYSIS_SCAN_SHAPE), dtype="float32"),
+            dict(_sync_free("_FlashFA2", fa2), shape=list(ANALYSIS_FA2_SHAPE),
+                 dtype="bfloat16", block=ANALYSIS_FA2_BLOCK)]
+    log({"phase": "analysis.sync", "mode": "error", "roots": rows})
+    require(rows[0]["launches"] == {"selective_scan": 1,
+                                    "selective_scan_bwd": 1},
+            f"the scan root's launches: {rows[0]['launches']}")
+    return rows
+
 
 def phase_device():
     require(torch.cuda.is_available(), "no CUDA device: chip_smoke.py "
@@ -5598,7 +5724,9 @@ def phase_shard(dev: str = "cuda", smoke: bool = False) -> dict:
             "scan_shape": ssm["scan_shape"]}
 
 def main() -> int:
+    phase_analysis()
     card = phase_device()
+    phase_analysis_sync()
     g, owner, plan, launches, main_results = phase_main()
     sssp_state = main_results["sssp"].state
     gnn_launches = phase_gnn(g, plan)

@@ -15,5 +15,17 @@ nothing of the JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The multi-device path (sharded DFEP and ETSCH, ``Engine(plan, group=...)``)
 runs one rank of a ``torch.distributed`` process group per device.
+
+``core``, ``engine`` and ``kernels`` load on first use (PEP 562), so
+``import repro_torch.analysis`` — the stdlib-only static checker — loads
+neither torch nor numpy.
 """
-from . import core, engine, kernels  # noqa: F401
+import importlib
+
+_LAZY = ("core", "engine", "kernels")
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -174,9 +174,12 @@ class PendingResult:
         steps = int(torch.as_tensor(supersteps).max())
         rec = _obs.get()
         if rec.enabled:   # per-dispatch superstep + exchange accounting
+            # reduced on host copies: a torch reduction in the event's
+            # arguments would launch device work per served result
+            li, conv = (torch.as_tensor(t).cpu()
+                        for t in (local_iters, converged))
             rec.event("engine.result", supersteps=steps,
-                      local_iters=int(torch.as_tensor(local_iters).max()),
-                      converged=bool(torch.as_tensor(converged).all()),
+                      local_iters=int(li.max()), converged=bool(conv.all()),
                       exchange_per_superstep=ex, exchanged=steps * ex)
             rec.counter("engine.supersteps", steps)
             rec.counter("engine.exchanged", steps * ex)

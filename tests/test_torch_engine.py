@@ -214,7 +214,10 @@ def test_package_imports_no_jax_and_no_reference():
                 "repro_torch.launch.dryrun", "repro_torch.roofline.count",
                 "repro_torch.roofline.analysis",
                 "repro_torch.roofline.report",
-                "repro_torch.roofline.experiments_md"):
+                "repro_torch.roofline.experiments_md",
+                "repro_torch.analysis.runner",
+                "repro_torch.analysis.trace_safety",
+                "repro_torch.analysis.__main__"):
         assert mod in seen["mods"]
 
 

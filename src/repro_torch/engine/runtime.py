@@ -22,7 +22,11 @@ test (``any(new != old)``) is one device→host read. ``Engine(plan,
 use_kernels=True)`` sweeps and exchanges through the kernels of
 ``engine/kernels.py`` (their plain versions for CPU tensors);
 ``use_kernels=False`` runs the plain versions everywhere, as the
-reference's XLA path does.
+reference's XLA path does. With the recorder on (``repro_torch.obs``) a
+dispatch leaves ``engine.run`` over one ``engine.superstep`` a superstep,
+each over its local sweeps' launches (``engine.sweep``) and the reads
+that decide a loop (``engine.read``, counted in ``engine.host_reads``),
+then ``engine.gather`` (the master-slot gather and finalize).
 
 Batched queries (the serving scenario) answer S queries in one superstep
 loop. Where the reference vmaps its whole loop, the port vmaps only the
@@ -171,18 +175,21 @@ class PendingResult:
         state, supersteps, local_iters, converged = \
             self.block_until_ready()._arrays
         ex = self.exchange_per_superstep
-        steps = int(torch.as_tensor(supersteps).max())
         rec = _obs.get()
         if rec.enabled:   # per-dispatch superstep + exchange accounting
-            # reduced on host copies: a torch reduction in the event's
-            # arguments would launch device work per served result
-            li, conv = (torch.as_tensor(t).cpu()
-                        for t in (local_iters, converged))
-            rec.event("engine.result", supersteps=steps,
-                      local_iters=int(li.max()), converged=bool(conv.all()),
-                      exchange_per_superstep=ex, exchanged=steps * ex)
+            # the event's three numbers in the one host copy the result
+            # takes anyway (a torch reduction in the event's arguments
+            # would launch device work and a read per served result)
+            steps, li, conv = torch.stack([
+                torch.as_tensor(supersteps).max().long(),
+                torch.as_tensor(local_iters).max().long(),
+                torch.as_tensor(converged).all().long()]).tolist()
+            rec.event("engine.result", supersteps=steps, local_iters=li,
+                      converged=bool(conv), exchange_per_superstep=ex,
+                      exchanged=steps * ex)
             rec.counter("engine.supersteps", steps)
-            rec.counter("engine.exchanged", steps * ex)
+        else:
+            steps = int(torch.as_tensor(supersteps).max())
         return EngineResult(state, supersteps, local_iters, converged, ex,
                             steps * ex)
 
@@ -206,6 +213,17 @@ def _pending(plan, out: tuple, start) -> PendingResult:
     event = torch.cuda.Event(enable_timing=True)
     event.record()
     return PendingResult(out, plan.exchange_volume, event, start)
+
+
+def _read(rec, flag: torch.Tensor) -> bool:
+    """``flag`` on the host: the one device→host read that decides a loop,
+    recorded (span ``engine.read``, counter ``engine.host_reads``) while
+    the recorder is on."""
+    if not rec.enabled:
+        return bool(flag)
+    rec.counter("engine.host_reads")
+    with rec.span("engine.read"):
+        return bool(flag)
 
 
 def _steps(prog: EdgeProgram, max_supersteps: int | None) -> int:
@@ -363,6 +381,7 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     phase runs on it alone, the exchange, the superstep's change test and
     the final gather run across the ranks, and ``local_iters`` is the
     largest rank's (the critical path)."""
+    rec = _obs.get()
     ctx = prog.prepare(plan, kw)
     state0 = prog.init(plan, ctx) if prev is None \
         else prog.warm_init(plan, prev, ctx)
@@ -370,8 +389,10 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     if prog.mode == "replica":
         def local_phase(st):
             def sweep(s):
-                return prog.apply(s, _sweep(plan, prog, s, ctx,
-                                            use_kernels=use_kernels), ctx)
+                with rec.span("engine.sweep"):
+                    return prog.apply(s, _sweep(plan, prog, s, ctx,
+                                                use_kernels=use_kernels),
+                                      ctx)
 
             if not prog.local_fixpoint:   # exactly one sweep, uncapped
                 return sweep(st), 1
@@ -379,25 +400,29 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
             while changed and it < max_local_iters:
                 ns = sweep(st)
                 it += 1
-                changed = bool((ns != st).any())
+                changed = _read(rec, (ns != st).any())
                 st = ns
             return st, it
 
         st, steps, litot, changed = state0, 0, 0, True
         while changed and steps < max_supersteps:
-            st1, li = local_phase(st)
-            st2 = _exchange(plan, st1, prog.combine,
-                            use_kernels=use_kernels, group=group)
-            changed = bool(_across((st2 != st).any(), group))
+            with rec.span("engine.superstep"):
+                st1, li = local_phase(st)
+                st2 = _exchange(plan, st1, prog.combine,
+                                use_kernels=use_kernels, group=group)
+                changed = _read(rec, _across((st2 != st).any(), group))
             st, steps, litot = st2, steps + 1, litot + li
         converged = not changed   # still changing => the cap cut us off
     else:  # partial aggregation: lock-step, fixed superstep count
         st = state0
         for _ in range(max_supersteps):
-            agg = _sweep(plan, prog, st, ctx, use_kernels=use_kernels)
-            full = _exchange(plan, agg, prog.combine,
-                             use_kernels=use_kernels, group=group)
-            st = prog.apply(st, full, ctx)
+            with rec.span("engine.superstep"):
+                with rec.span("engine.sweep"):
+                    agg = _sweep(plan, prog, st, ctx,
+                                 use_kernels=use_kernels)
+                full = _exchange(plan, agg, prog.combine,
+                                 use_kernels=use_kernels, group=group)
+                st = prog.apply(st, full, ctx)
         steps = litot = max_supersteps
         converged = True          # fixed-iteration programs by design
 
@@ -405,8 +430,10 @@ def _run_loop(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         litot = int(C.all_reduce_(torch.tensor([litot], dtype=torch.int32,
                                                device=st.device), "max",
                                   group))
-    glob, present = _gather_global(plan, st, group)
-    return prog.finalize(glob, present, plan, ctx), steps, litot, converged
+    with rec.span("engine.gather"):
+        glob, present = _gather_global(plan, st, group)
+        return (prog.finalize(glob, present, plan, ctx), steps, litot,
+                converged)
 
 
 def _lane_map(fn, args: tuple, axes: tuple, out_axis: int, n: int):
@@ -473,6 +500,7 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     the lanes' change flags and local-iteration counts are reduced with
     max across the ranks, as :func:`_run_loop` reduces a solo run's.
     """
+    rec = _obs.get()
     n = int(next(iter(batched_kw.values())).shape[0])
     ctx = vmap(lambda b: prog.prepare(plan, {**kw, **b}))(batched_kw)
     if prev is None:
@@ -503,16 +531,19 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
     if prog.mode == "replica":
         def local_phase(st, active):
             if not prog.local_fixpoint:   # exactly one sweep, uncapped
-                return where(active, sweep(st), st), active.to(torch.int32)
+                with rec.span("engine.sweep"):
+                    return (where(active, sweep(st), st),
+                            active.to(torch.int32))
             it, lact = zeros(), active
             go = max_local_iters > 0
             while go:
-                ns = sweep(st)
-                changed = differs(ns, st)
-                st = where(lact, ns, st)
-                it += lact
-                lact = lact & changed & (it < max_local_iters)
-                go = bool(lact.any())
+                with rec.span("engine.sweep"):
+                    ns = sweep(st)
+                    changed = differs(ns, st)
+                    st = where(lact, ns, st)
+                    it += lact
+                    lact = lact & changed & (it < max_local_iters)
+                go = _read(rec, lact.any())
             return st, it
 
         steps, litot = zeros(), zeros()
@@ -520,35 +551,40 @@ def _run_lanes(plan: PartitionPlan, prog: EdgeProgram, kw: dict,
         changed = active
         go = max_supersteps > 0
         while go:
-            st1, li = local_phase(st, active)
-            st2 = where(active, _exchange(plan, st1, prog.combine,
-                                          use_kernels=use_kernels,
-                                          group=group), st)
-            changed = torch.where(active, _across(differs(st2, st), group),
-                                  changed)
-            steps += active
-            litot += li
-            active = active & changed & (steps < max_supersteps)
-            st = st2
-            go = bool(active.any())
+            with rec.span("engine.superstep"):
+                st1, li = local_phase(st, active)
+                st2 = where(active, _exchange(plan, st1, prog.combine,
+                                              use_kernels=use_kernels,
+                                              group=group), st)
+                changed = torch.where(active,
+                                      _across(differs(st2, st), group),
+                                      changed)
+                steps += active
+                litot += li
+                active = active & changed & (steps < max_supersteps)
+                st = st2
+                go = _read(rec, active.any())
         converged = ~changed      # still changing => the cap cut it off
     else:  # partial aggregation: lock-step, fixed superstep count
         for _ in range(max_supersteps):
-            agg = _sweep(plan, lane, st, ctx, use_kernels=use_kernels,
-                         lanes=True)
-            full = _exchange(plan, agg, prog.combine,
-                             use_kernels=use_kernels, group=group)
-            st = lane.apply(st, full, ctx)
+            with rec.span("engine.superstep"):
+                with rec.span("engine.sweep"):
+                    agg = _sweep(plan, lane, st, ctx,
+                                 use_kernels=use_kernels, lanes=True)
+                full = _exchange(plan, agg, prog.combine,
+                                 use_kernels=use_kernels, group=group)
+                st = lane.apply(st, full, ctx)
         steps = litot = torch.full((n,), max_supersteps, dtype=torch.int32,
                                    device=dev)
         converged = torch.ones(n, dtype=torch.bool, device=dev)
 
     if group is not None:   # the critical path, lane by lane
         C.all_reduce_(litot, "max", group)
-    glob, present = _gather_global(plan, st, group)     # [V, S(, F)]
-    state = _lane_map(lambda g, c: prog.finalize(g, present, plan, c),
-                      (glob, ctx), (1, 0), 0, n)
-    return state.contiguous(), steps, litot, converged
+    with rec.span("engine.gather"):
+        glob, present = _gather_global(plan, st, group)     # [V, S(, F)]
+        state = _lane_map(lambda g, c: prog.finalize(g, present, plan, c),
+                          (glob, ctx), (1, 0), 0, n)
+        return state.contiguous(), steps, litot, converged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -648,7 +684,7 @@ class Engine:
         start = _start(self.plan)
         steps = _steps(prog, max_supersteps)
         prev = self._check_warm(prog, warm_state)
-        with self._obs_dispatch(prog, 0):
+        with self._obs_dispatch(prog, 0), _obs.get().span("engine.run"):
             out = _run_loop(self._local_plan(), prog, kw, prev, steps,
                             max_local_iters, self.use_kernels, self.group)
         return _pending(self.plan, out, start)
@@ -683,7 +719,7 @@ class Engine:
                 f"{ {k: tuple(v.shape) for k, v in batched_kw.items()} }")
         n_batch = lanes.pop()
         prev = self._check_warm(prog, warm_state, n_batch)
-        with self._obs_dispatch(prog, n_batch):
+        with self._obs_dispatch(prog, n_batch), _obs.get().span("engine.run"):
             out = _run_lanes(self._local_plan(), prog, kw, batched_kw, prev,
                              steps, max_local_iters, self.use_kernels,
                              self.group)

@@ -46,6 +46,16 @@ The server pulls five pieces together:
     swap see the new one.  Every result is stamped with the buffer it was
     served from, so callers can check consistency against that exact
     snapshot.
+
+With the recorder on (``repro_torch.obs``) a micro-batch leaves a span
+tree: ``serve.pump`` (``pump()``) over ``serve.form`` (batch formation)
+and ``serve.batch``; under the batch, ``serve.probe`` (cache probe and
+warm block), ``serve.dispatch`` (the engine's ``engine.run`` below it),
+``serve.execute`` (``serve.wait`` for the pending result, then
+``serve.copy``, the host copies of state, supersteps and local
+iterations) and ``serve.materialize``. The counters ``serve.queue_s`` and
+``serve.queued`` sum the submit-to-dispatch seconds of the dispatched
+requests and count them.
 """
 from __future__ import annotations
 
@@ -515,7 +525,7 @@ class GraphServer:
             lane_val: dict[int, np.ndarray] = {}
             uncached: list[int] = []
             warm_state = None
-            with self._lock:
+            with rec.span("serve.probe", parent=bsid), self._lock:
                 self._maybe_invalidate_cache()
                 for li, p in enumerate(batch.params):
                     hit = self.cache.get(buffer.fingerprint(),
@@ -550,17 +560,17 @@ class GraphServer:
                     cost = _profile.cost_model(
                         eng, entry.program, bucket=bucket, batched_kw=bkw,
                         max_supersteps=steps, **kw)
-                dsid = rec.begin("serve.dispatch", parent=bsid,
-                                 bucket=bucket, lanes=n_lanes,
-                                 warm_lanes=len(warm_lanes)) \
-                    if rec.enabled else None
-                pending = eng.dispatch_batched(
-                    entry.program, bkw,
-                    max_supersteps=steps, warm_state=warm_state, **kw)
-                rec.end(dsid)
+                if rec.enabled:
+                    self._count_queue(rec, [r for r in batch.requests
+                                            if r.id in lane_of])
+                with rec.span("serve.dispatch", parent=bsid, bucket=bucket,
+                              lanes=n_lanes, warm_lanes=len(warm_lanes)):
+                    pending = eng.dispatch_batched(
+                        entry.program, bkw,
+                        max_supersteps=steps, warm_state=warm_state, **kw)
         else:                                   # one shared run
             key = req0.cache_key()
-            with self._lock:
+            with rec.span("serve.probe", parent=bsid), self._lock:
                 self._maybe_invalidate_cache()
                 hit = self.cache.get(buffer.fingerprint(), key)
             if hit is not None:
@@ -572,17 +582,29 @@ class GraphServer:
                     cost = _profile.cost_model(
                         eng, entry.program, bucket=None,
                         max_supersteps=steps, **kw)
-                dsid = rec.begin("serve.dispatch", parent=bsid, bucket=1,
-                                 lanes=1) if rec.enabled else None
-                pending = eng.dispatch(entry.program, max_supersteps=steps,
-                                       **kw)
-                rec.end(dsid)
+                if rec.enabled:
+                    self._count_queue(rec, batch.requests)
+                with rec.span("serve.dispatch", parent=bsid, bucket=1,
+                              lanes=1):
+                    pending = eng.dispatch(entry.program,
+                                           max_supersteps=steps, **kw)
         if pending is not None:
             self.metrics.record_batch(len(batch.requests) - len(cached),
                                       n_lanes, bucket, len(warm_lanes))
         return _InFlight(batch, buffer, pending, lane_of, cached,
                          n_lanes, bucket, time.perf_counter(), warm_lanes,
                          span=bsid, cost=cost)
+
+    def _count_queue(self, rec, requests: list) -> None:
+        """Add the submit-to-dispatch seconds of ``requests``, about to be
+        dispatched, to the counters ``serve.queue_s`` and
+        ``serve.queued``."""
+        now = time.perf_counter()
+        with self._lock:
+            waits = [now - self._t_submit[r.id] for r in requests
+                     if r.id in self._t_submit]
+        rec.counter("serve.queue_s", sum(waits))
+        rec.counter("serve.queued", len(waits))
 
     def _complete(self, fl: _InFlight) -> list[QueryResult]:
         """Sync one in-flight batch and materialise per-request results."""
@@ -602,12 +624,14 @@ class GraphServer:
             # host materialisation of the state block — the denominator
             # every ledger device_s and utilization figure reconciles
             # against (device_time_s)
-            fl.pending.block_until_ready()
+            with rec.span("serve.wait", parent=esid):
+                fl.pending.block_until_ready()
             t_exec = time.perf_counter()
-            res = fl.pending.result()
-            state = _host(res.state)
-            ss = _host(res.supersteps).reshape(-1)
-            iters = _host(res.local_iters).reshape(-1)
+            with rec.span("serve.copy", parent=esid):
+                res = fl.pending.result()
+                state = _host(res.state)
+                ss = _host(res.supersteps).reshape(-1)
+                iters = _host(res.local_iters).reshape(-1)
             exec_dt = fl.pending.device_s() + time.perf_counter() - t_exec
             self.metrics.record_execute(exec_dt)
             # the cost model is per sweep; the measured critical path
@@ -723,12 +747,14 @@ class GraphServer:
 
     def pump(self) -> list[QueryResult]:
         """Serve exactly one micro-batch (or nothing if the queue is empty)."""
-        with self._lock:
-            batch = self._batcher.next_batch()
-            buffer = self._front
-        if batch is None:
-            return []
-        return self._complete(self._dispatch_batch(batch, buffer))
+        rec = _obs.get()
+        with rec.span("serve.pump"):
+            with rec.span("serve.form"), self._lock:
+                batch = self._batcher.next_batch()
+                buffer = self._front
+            if batch is None:
+                return []
+            return self._complete(self._dispatch_batch(batch, buffer))
 
     def drain(self, max_wait_s: float | None = None) -> list[QueryResult]:
         """Serve until the queue is empty, software-pipelined: the next

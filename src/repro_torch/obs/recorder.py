@@ -1,7 +1,11 @@
 """Process-global observability recorder: events, spans, counters, gauges.
 
-A copy of ``repro.obs.recorder`` (stdlib only), kept in the port so that
-``repro_torch`` imports nothing of the JAX package.
+The port of ``repro.obs.recorder``, kept in the port so that
+``repro_torch`` imports nothing of the JAX package. Where the reference
+is stdlib only, the port also mirrors every span onto the profiler's
+host timeline (``torch``'s record-function ranges), so that a device
+trace taken with ``torch.profiler`` shows the program's spans beside the
+operations they launched, on one clock.
 
 One ``Recorder`` instance per process (``get()``), shared by every
 subsystem — partition plan compilation, the superstep engine, the
@@ -42,6 +46,13 @@ interleaves batches, so its child spans carry explicit parent ids.
 ``args["span_id"]`` / ``args["parent_id"]`` make the tree reconstructable
 from an exported trace.
 
+While enabled, ``begin`` also opens a profiler range of the span's name
+and ``end`` closes it (in any order: the pipelined drain closes spans
+out of order), so a running ``torch.profiler`` records each span as a
+host op. ``end`` adds the span to two counters, exact however often
+the ring wraps: ``span.<name>.n`` (spans closed) and ``span.<name>.s``
+(their seconds).
+
 Ambient tags
 ------------
 ``with rec.tags(program="sssp", bucket=16): ...`` merges key/values into
@@ -66,6 +77,14 @@ import time
 import weakref
 from typing import Any, Callable
 
+try:    # a profiler range at half a microsecond; the public one costs ~20
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:                                  # pragma: no cover
+    from torch.profiler import record_function as _Range
+
+#: what ``span()`` hands back while the recorder is disabled
+_OFF = contextlib.nullcontext()
+
 
 class Recorder:
     """Fixed-size ring buffer of structured events and spans."""
@@ -82,15 +101,19 @@ class Recorder:
                                          #   wraparound (monotone, never
                                          #   reset — silent data loss must
                                          #   stay visible across resets)
+        self._open: dict = {}
         self._reset_state()
 
     def _reset_state(self) -> None:
+        for _, rng in self._open.values():
+            rng.__exit__(None, None, None)   # a range left open leaks
         self._ring: list = [None] * self._capacity
         self._n = 0                      # ring write index since last reset
         self._counters: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
         self._by_name: dict[str, int] = {}
-        self._open: dict[int, dict] = {}
+        #: span id -> (its event, its profiler range)
+        self._open: dict[int, tuple[dict, Any]] = {}
         self._t0 = time.perf_counter()
 
     # -- lifecycle -----------------------------------------------------------
@@ -180,32 +203,43 @@ class Recorder:
         a["span_id"] = sid
         if parent is not None:
             a["parent_id"] = parent
-        self._open[sid] = {"name": name, "ph": "X", "ts": self._now_us(),
-                           "dur": 0.0, "tid": threading.get_ident(),
-                           "args": a}
+        rng = _Range(name)
+        rng.__enter__()
+        self._open[sid] = ({"name": name, "ph": "X", "ts": self._now_us(),
+                            "dur": 0.0, "tid": threading.get_ident(),
+                            "args": a}, rng)
         return sid
 
     def end(self, span_id: int | None, **extra: Any) -> None:
-        """Close a span (recording it, with duration); merges ``extra`` into
-        its args — values only known at completion (supersteps, cache
-        hits) attach to the span that produced them."""
+        """Close a span (recording it, with duration, and adding it to its
+        ``span.<name>.*`` counters); merges ``extra`` into its args —
+        values only known at completion (supersteps, cache hits) attach
+        to the span that produced them."""
         if span_id is None:
             return
-        rec = self._open.pop(span_id, None)
-        if rec is None:
+        got = self._open.pop(span_id, None)
+        if got is None:
             return
-        rec["dur"] = self._now_us() - rec["ts"]
+        rec, rng = got
+        rng.__exit__(None, None, None)
+        rec["dur"] = dur = self._now_us() - rec["ts"]
         if extra:
             rec["args"].update(extra)
         self._record(rec)
+        c, name = self._counters, "span." + rec["name"]
+        c[name + ".n"] = c.get(name + ".n", 0) + 1
+        c[name + ".s"] = c.get(name + ".s", 0) + dur * 1e-6
 
-    @contextlib.contextmanager
     def span(self, name: str, parent: int | None = None, **args: Any):
         """Context-managed span; nests via a per-thread stack (children
-        opened inside default their parent to this span)."""
+        opened inside default their parent to this span). Disabled, one
+        branch and a shared null context."""
         if not self._enabled:
-            yield None
-            return
+            return _OFF
+        return self._span(name, parent, args)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, parent: int | None, args: dict):
         sid = self.begin(name, parent=parent, **args)
         stack = self._stack()
         stack.append(sid)
